@@ -1,12 +1,11 @@
 """Target and query databases of the port.
 
-DB storage, createdb and the synthetic scale DBs are `foldseek_tpu`'s
-framework-free host code (no jax at import), shared so that both packages
-read and write the same files; `panels` holds the port's device copy of the
-prefilter panels.
+DB storage, createdb and the synthetic scale DBs are host code with the same
+file formats as `foldseek_tpu`'s, so both packages read and write the same
+DB directories; `panels` holds what a target DB keeps on the device.
 """
-from foldseek_tpu.db.storage import StructDB, is_db, load_db
-from foldseek_tpu.db.synth import synth_db
-from foldseek_tpu.ingest.createdb import create_db
+from ..ingest.createdb import create_db
+from .storage import StructDB, is_db, load_db
+from .synth import synth_db
 
 __all__ = ["StructDB", "create_db", "is_db", "load_db", "synth_db"]

@@ -36,6 +36,7 @@ class Built:
 
 _built: Dict[str, Built] = {}
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 
 
 def _nvcc() -> str:
@@ -72,8 +73,11 @@ def _compile(name: str) -> Built:
 
 
 def load(name: str) -> Built:
-    """The built kernel library `csrc/<name>.cu`, compiled on first use."""
+    """The built kernel library `csrc/<name>.cu`, compiled on first use.
+    Threads asking for different libraries build them side by side."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         built = _built.get(name)
         if built is None:
             built = _built[name] = _compile(name)

@@ -10,8 +10,8 @@ banded_sw with doubling band width for the backtrace :1724-1957).
 This runs on the host for the handful of hits that survive the E-value gate;
 the heavy all-pairs scoring stays on the device.
 
-Re-homed from `foldseek_tpu/ops/backtrace.py` (which reaches jax through its
-`ops/sw.py` import); the code is unchanged apart from the imports.
+Counterpart of `foldseek_tpu/ops/backtrace.py`; the code is unchanged apart
+from the imports.
 """
 from __future__ import annotations
 
@@ -191,7 +191,7 @@ def recover_alignment(prof, t_aa: np.ndarray, t_ss: np.ndarray,
 
     Runs through the native host library when available (native.py; same
     semantics, ~50x faster per hit), falling back to the numpy paths."""
-    from foldseek_tpu import native
+    from .. import native
     # the flipped profile is per-QUERY state; rebuilding it per hit cost
     # ~0.1 ms x fleet size
     fprof = getattr(prof, "_flipped_cache", None)
@@ -216,7 +216,7 @@ def recover_alignment(prof, t_aa: np.ndarray, t_ss: np.ndarray,
                                  prof.gap_open, prof.gap_extend)
         # vectorized identity count over M columns (a python char loop here
         # was ~13M iterations per 64k-hit fleet)
-        from foldseek_tpu.ops.lddt import backtrace_indices
+        from .lddt import backtrace_indices
         q_idx, t_idx = backtrace_indices(bt, q_start, t_start)
         ident = int((np.asarray(prof.q_aa)[q_idx]
                      == np.asarray(t_aa)[t_idx]).sum())

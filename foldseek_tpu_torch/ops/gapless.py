@@ -17,8 +17,12 @@ Semantics (`_make_kernel_batch`): per query, per target,
 h = min(max(h_diag + prof[i, t_j], 0), cap), best = max(best, h) over every
 cell; the diagonal starts from 0 at the query's first row and the target's
 first column. The kernel keeps one value per diagonal, so a query of any
-length is the same launch: `gapless_scores_batch` covers both K1 and the
-slab-chained long-query kernel K2 (`_make_kernel_long`) of the JAX package.
+length is the same launch: `gapless_scores_batch` covers K1, the
+slab-chained long-query kernel K2 (`_make_kernel_long`) and the one-query
+kernel K5 (`_make_kernel_single`: a stack of one, with `NO_CAP` where it had
+no cap) of the JAX package. `gapless_scores_dual` is the dual-alphabet scan
+K6 (`_make_kernel_dual`): s = prof_aa[i, t_aa_j] + prof_ss[i, t_ss_j] over
+two panels of equal shape, no cap.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ PROF_LANES = 32
 # pad-lane score: resets h to 0 (h + NEG < 0 for any h <= cap) and cannot
 # overflow int32 in one add
 NEG = -(1 << 24)
+# a cap no running score reaches (profile scores stay below 2**20): min(h,
+# NO_CAP) is the identity
+NO_CAP = 2**31 - 1
 # CUDA grid rows: queries per launch
 MAX_QUERIES_PER_LAUNCH = 65535
 
@@ -66,32 +73,57 @@ def pack_profiles_batch(profs, caps):
 
 # --- plain PyTorch versions --------------------------------------------------
 
-def gapless_scores_batch_torch(prof: torch.Tensor, q_off: torch.Tensor,
-                               caps: torch.Tensor,
-                               t_T: torch.Tensor) -> torch.Tensor:
-    """Plain version of `gapless_scores_batch`: a column scan over the whole
-    stack, [rows, B] of state. Returns int32 [q, B]."""
-    dev = t_T.device
+def _diagonal_scan_torch(col_scores, n_rows: int, q_off: torch.Tensor,
+                         caps, Lt: int, B: int, dev) -> torch.Tensor:
+    """Column scan over a whole ragged stack, [rows, B] of state:
+    `col_scores(j)` gives the int32 [rows, B] cell scores of target column
+    j; `caps` int [q] or None. Returns int32 [q, B]."""
     offs = q_off.to("cpu", torch.long)
     q = offs.numel() - 1
-    Lt, B = t_T.shape
     lens = offs.diff()
     row_q = torch.repeat_interleave(torch.arange(q), lens).to(dev)
-    cap_row = caps.to(dev, torch.int32)[row_q][:, None]
-    first = torch.zeros(prof.shape[0], dtype=torch.bool)
+    cap_row = (None if caps is None
+               else caps.to(dev, torch.int32)[row_q][:, None])
+    first = torch.zeros(n_rows, dtype=torch.bool)
     first[offs[:-1][lens > 0]] = True
     first = first.to(dev)[:, None]
-    prof = prof.to(dev, torch.int32)
     zero_row = torch.zeros((1, B), dtype=torch.int32, device=dev)
-    h = torch.zeros((prof.shape[0], B), dtype=torch.int32, device=dev)
+    h = torch.zeros((n_rows, B), dtype=torch.int32, device=dev)
     best = torch.zeros_like(h)
     for j in range(Lt):
-        s = prof[:, t_T[j].long() & (PROF_LANES - 1)]
         diag = torch.cat([zero_row, h[:-1]]).masked_fill_(first, 0)
-        h = torch.minimum(torch.clamp_min(diag + s, 0), cap_row)
+        h = torch.clamp_min(diag + col_scores(j), 0)
+        if cap_row is not None:
+            h = torch.minimum(h, cap_row)
         best = torch.maximum(best, h)
     out = torch.zeros((q, B), dtype=torch.int32, device=dev)
     return out.scatter_reduce_(0, row_q[:, None].expand(-1, B), best, "amax")
+
+
+def gapless_scores_batch_torch(prof: torch.Tensor, q_off: torch.Tensor,
+                               caps: torch.Tensor,
+                               t_T: torch.Tensor) -> torch.Tensor:
+    """Plain version of `gapless_scores_batch`. Returns int32 [q, B]."""
+    dev = t_T.device
+    Lt, B = t_T.shape
+    prof = prof.to(dev, torch.int32)
+    return _diagonal_scan_torch(
+        lambda j: prof[:, t_T[j].long() & (PROF_LANES - 1)],
+        prof.shape[0], q_off, caps, Lt, B, dev)
+
+
+def gapless_scores_dual_torch(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
+                              q_off: torch.Tensor, t_aa_T: torch.Tensor,
+                              t_ss_T: torch.Tensor) -> torch.Tensor:
+    """Plain version of `gapless_scores_dual`. Returns int32 [q, B]."""
+    dev = t_aa_T.device
+    Lt, B = t_aa_T.shape
+    prof_aa = prof_aa.to(dev, torch.int32)
+    prof_ss = prof_ss.to(dev, torch.int32)
+    return _diagonal_scan_torch(
+        lambda j: (prof_aa[:, t_aa_T[j].long() & (PROF_LANES - 1)]
+                   + prof_ss[:, t_ss_T[j].long() & (PROF_LANES - 1)]),
+        prof_aa.shape[0], q_off, None, Lt, B, dev)
 
 
 # --- CUDA wrappers ------------------------------------------------------------
@@ -105,6 +137,10 @@ def _lib():
         fn.argtypes = [p, p, p, ctypes.c_int, p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, p, p]
         fn.restype = ctypes.c_int
+        lib.gapless_scores_dual.argtypes = [
+            p, p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, p, p]
+        lib.gapless_scores_dual.restype = ctypes.c_int
     return lib
 
 
@@ -152,6 +188,52 @@ def gapless_scores_batch(prof: torch.Tensor, q_off: torch.Tensor,
 
 
 gapless_scores_batch.launches = 0
+
+
+def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
+                        q_off: torch.Tensor, t_aa_T: torch.Tensor,
+                        t_ss_T: torch.Tensor) -> torch.Tensor:
+    """Best uncapped ungapped-diagonal score under the summed AA + 3Di
+    profiles of each stacked query against each target of the two panels
+    (int8 [Lt, B] each, pad letter 21 in both). Returns int32 [q, B].
+
+    Every launch of the dual gapless kernel goes through this function and
+    adds one to `gapless_scores_dual.launches`."""
+    dev = t_aa_T.device
+    if dev.type == "cpu":
+        return gapless_scores_dual_torch(prof_aa, prof_ss, q_off, t_aa_T,
+                                         t_ss_T)
+    _check("prof_aa", prof_aa, torch.int32, 2, dev)
+    _check("prof_ss", prof_ss, torch.int32, 2, dev)
+    _check("q_off", q_off, torch.int32, 1, dev)
+    _check("t_aa_T", t_aa_T, torch.int8, 2, dev)
+    _check("t_ss_T", t_ss_T, torch.int8, 2, dev)
+    q = q_off.numel() - 1
+    if prof_aa.shape[1] != PROF_LANES or prof_ss.shape != prof_aa.shape \
+            or t_ss_T.shape != t_aa_T.shape or q < 0:
+        raise ValueError("profiles must be equal [rows, 32], panels equal "
+                         "[Lt, B]")
+    if q > MAX_QUERIES_PER_LAUNCH:
+        raise ValueError(f"at most {MAX_QUERIES_PER_LAUNCH} queries a launch")
+    if not (prof_aa.is_contiguous() and prof_ss.is_contiguous()
+            and q_off.is_contiguous() and t_aa_T.stride(1) == 1
+            and t_ss_T.stride(1) == 1):
+        raise ValueError("gapless kernel inputs must be contiguous")
+    Lt, B = t_aa_T.shape
+    out = torch.empty((q, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().gapless_scores_dual(
+            prof_aa.data_ptr(), prof_ss.data_ptr(), q_off.data_ptr(), q,
+            t_aa_T.data_ptr(), t_ss_T.data_ptr(), Lt, B, t_aa_T.stride(0),
+            t_ss_T.stride(0), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dual gapless kernel launch failed: CUDA error {rc}")
+    gapless_scores_dual.launches += 1
+    return out
+
+
+gapless_scores_dual.launches = 0
 
 
 def gapless_topk_batch(prof: torch.Tensor, q_off: torch.Tensor,

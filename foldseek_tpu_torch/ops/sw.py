@@ -1,9 +1,8 @@
 """Query profiles and the plain Smith-Waterman score pass.
 
-Re-homed from `foldseek_tpu/ops/sw.py`, whose module imports jax at the top:
-`calc_comp_bias`, `QueryProfile` and `sw_score_endpos_np` are copied
-verbatim (numpy, shared semantics with the reference's
-StructureSmithWaterman.cpp). `sw_score_endpos_torch` is the plain PyTorch
+Counterpart of `foldseek_tpu/ops/sw.py`: `calc_comp_bias`, `QueryProfile`
+and `sw_score_endpos_np` are that module's (numpy, shared semantics with the
+reference's StructureSmithWaterman.cpp). `sw_score_endpos_torch` is the plain PyTorch
 version of that module's XLA column scan (`sw_score_endpos`): one query
 profile against a batch of padded targets. Its engine, `sw_scan_torch`,
 scores pairs of (profile slot, target) and is also the plain version of the
@@ -24,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from foldseek_tpu.ops.matrices import ALPHA_SIZE, blosum62, mat3di
+from .matrices import ALPHA_SIZE, blosum62, mat3di
 
 NEG_INF = -(2**30)
 

@@ -1,13 +1,11 @@
 """The port's search workflow: `search` and `easy_search` on a torch device.
 
-`SearchParams`, the m8 formatting and the per-stage timers are
-`foldseek_tpu`'s framework-free host code (no jax at import), shared so that
-flags, defaults and output bytes are the same in both packages.
+`SearchParams`, the m8 formatting and the per-stage timers are host code with
+`foldseek_tpu`'s flags, defaults and output bytes.
 """
-from foldseek_tpu.search.convertalis import format_results
-from foldseek_tpu.search.params import SearchParams
-from foldseek_tpu.utils.log import reset_stage_times, snapshot_stage_times
-
+from ..utils.log import reset_stage_times, snapshot_stage_times
+from .convertalis import format_results
+from .params import SearchParams
 from .pipeline import easy_search, search
 
 __all__ = ["SearchParams", "easy_search", "format_results",

@@ -12,8 +12,7 @@ Device mapping: `PairScorer` sends every (query, candidate) pair of the
 stage, forward and reversed profile, to one call of `sw_scores_pairs` (the
 CUDA kernel on a CUDA device, its plain PyTorch version on the CPU). The
 per-hit work (backtrace, TM, LDDT) runs in the native host library under a
-thread pool; from `_host_gates_one` on, the host code is the JAX package's,
-re-homed here because that module imports jax.
+thread pool.
 """
 from __future__ import annotations
 
@@ -25,28 +24,20 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from foldseek_tpu import native
-from foldseek_tpu.db.storage import StructDB
-from foldseek_tpu.nn.evalue import EvalueComputer
-from foldseek_tpu.ops import lddt as lddt_ops
-from foldseek_tpu.ops import tmscore as tm_ops
-from foldseek_tpu.search.params import (INT_MAX, SearchParams,
-                                        can_be_covered_mask, has_coverage)
-from foldseek_tpu.search.results import (AlnResult, compare_hits,
-                                         compare_hits_by_structure_bits)
-from foldseek_tpu.utils.hostpar import map_queries
-from foldseek_tpu.utils.log import StageTimer, logger, record_stage
-
+from .. import native
+from ..db.panels import resident_panels
+from ..db.storage import StructDB
+from ..nn.evalue import EvalueComputer
 from ..ops import backtrace as bt_ops
+from ..ops import lddt as lddt_ops
+from ..ops import tmscore as tm_ops
+from ..ops.matrices import blosum62, mat3di
 from ..ops.sw import QueryProfile
 from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
-
-
-def residues_on(tdb: StructDB, device: torch.device):
-    """The target DB's concatenated AA and 3Di residues as int8 tensors on
-    `device` (the SW kernel reads targets straight from them)."""
-    return tuple(torch.tensor(np.asarray(a, dtype=np.int8)).to(device)
-                 for a in (tdb.aa, tdb.ss))
+from ..utils.hostpar import map_queries
+from ..utils.log import StageTimer, logger, record_stage
+from .params import INT_MAX, SearchParams, can_be_covered_mask, has_coverage
+from .results import AlnResult, compare_hits, compare_hits_by_structure_bits
 
 
 class PairScorer:
@@ -88,9 +79,10 @@ class PairScorer:
         paa, pss, slot_off = pack_sw_slots(slots_aa, slots_ss)
         pair_start = np.zeros(len(counts) + 1, dtype=np.int64)
         np.cumsum(counts, out=pair_start[1:])
-        offs = np.asarray(tdb.offsets, dtype=np.int64)
+        panels = resident_panels(tdb, device)
+        offs = panels.offsets
         tids = np.concatenate(tids)
-        res_aa, res_ss = residues_on(tdb, device)
+        res_aa, res_ss = panels.residues()
         out = sw_scores_pairs(
             torch.from_numpy(paa).to(device), torch.from_numpy(pss).to(device),
             slot_off, pair_start, res_aa, res_ss, offs[tids],
@@ -222,7 +214,6 @@ def _block_mats(prof):
     """(mat_aa, mat_ss) int8 21x21 exactly as the block path receives them
     (subMatAA/subMat3Di->subMatrix, StructureSmithWaterman.cpp:428-446);
     3Di-only mode zeroes the AA matrix (structurealign.cpp:264-265)."""
-    from foldseek_tpu.ops.matrices import blosum62, mat3di
     maa = blosum62().scores.astype(np.int8)
     if not getattr(prof, "_with_aa", True):
         maa = np.zeros_like(maa)

@@ -4,7 +4,7 @@ src/workflow/StructureSearch.cpp).
 
 Port of `foldseek_tpu/search/pipeline.py` for one process: with a tmp dir,
 the prefilter and align stages persist their artifacts through
-`foldseek_tpu.search.stages` and a re-invoked run resumes from them. Every
+`search/stages.py` and a re-invoked run resumes from them. Every
 entry point takes the torch device the stages run on.
 """
 from __future__ import annotations
@@ -14,15 +14,14 @@ from typing import Dict, List, Optional
 
 import torch
 
-from foldseek_tpu.search.convertalis import format_results, needs_backtrace
-from foldseek_tpu.search.params import SearchParams
-from foldseek_tpu.search.results import AlnResult
-from foldseek_tpu.search.stages import make_cache
-from foldseek_tpu.utils.log import Timer, logger
-
 from ..db import StructDB, create_db, is_db, load_db
+from ..utils.log import Timer, logger
 from .align import align_all
+from .convertalis import format_results, needs_backtrace, write_output
+from .params import PREF_MODE_UNGAPPED_AND_GAPPED, SearchParams
 from .prefilter import run_prefilter
+from .results import AlnResult
+from .stages import make_cache
 
 
 def ensure_db(path_or_input: str, tmp_dir: str, tag: str) -> StructDB:
@@ -59,6 +58,16 @@ def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
     if same_db is None:
         same_db = qdb.path == tdb.path
     cache = make_cache(tmp_dir, params, qdb, tdb)
+    if params.prefilter_mode == PREF_MODE_UNGAPPED_AND_GAPPED:
+        # alignment-format results straight from the prefilter pass
+        # (ungappedprefilter.cpp:274-291): no align stage
+        from .ungapped import ungapped_and_gapped_results
+
+        def run():
+            with Timer("ungapped+gapped prefilter"):
+                return ungapped_and_gapped_results(qdb, tdb, params, same_db,
+                                                   device)
+        return cache.run_aln("prefaln", run) if cache is not None else run()
 
     def run_pref():
         with Timer("prefilter"):
@@ -95,7 +104,6 @@ def easy_search(query_input: str, target_input: str, out_path: str,
     results = search(qdb, tdb, params, device, same_db=same_input,
                      tmp_dir=tmp_dir)
     if params.format_mode != 0:
-        from foldseek_tpu.search.convertalis import write_output
         write_output(qdb, tdb, results, out_path, params.format_output,
                      params.format_mode, with_backtrace=params.add_backtrace)
         n = sum(len(v) for v in results.values())

@@ -5,7 +5,9 @@
   search/ungapped.py.
 * EXHAUSTIVE (mode 2 or --exhaustive-search) — every query paired with every
   target in key order.
-The k-mer prefilter (mode 0), mode 3 and the index server are not ported.
+Mode 3 (ungapped + gapped, results without the align stage) is dispatched by
+`search/pipeline.py` before this stage. The k-mer prefilter (mode 0) and the
+index server are not ported.
 """
 from __future__ import annotations
 
@@ -13,9 +15,8 @@ from typing import Dict, List
 
 import torch
 
-from foldseek_tpu.db.storage import StructDB
-from foldseek_tpu.search.params import (PREF_MODE_EXHAUSTIVE,
-                                        PREF_MODE_UNGAPPED, SearchParams)
+from ..db.storage import StructDB
+from .params import PREF_MODE_EXHAUSTIVE, PREF_MODE_UNGAPPED, SearchParams
 
 
 def exhaustive_prefilter(qdb: StructDB, tdb: StructDB) -> Dict[int, List[int]]:
@@ -33,9 +34,6 @@ def run_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
     if params.prefilter_mode == PREF_MODE_UNGAPPED:
         from .ungapped import ungapped_prefilter
         return ungapped_prefilter(qdb, tdb, params, device)
-    if params.prefilter_mode == 3:
-        raise NotImplementedError(
-            "--prefilter-mode 3 is not ported yet (ROADMAP queue 1, item 11)")
     raise NotImplementedError(
         "the k-mer prefilter (--prefilter-mode 0) is not ported yet (ROADMAP "
         "queue 1, item 12); use --gpu 1 or --prefilter-mode 1")

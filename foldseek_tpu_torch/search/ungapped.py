@@ -1,4 +1,5 @@
-"""Ungapped prefilter stage (PREF_MODE_UNGAPPED), the `--gpu 1` prefilter.
+"""Ungapped prefilter stage (PREF_MODE_UNGAPPED), the `--gpu 1` prefilter,
+and `--prefilter-mode 3` (PREF_MODE_UNGAPPED_AND_GAPPED).
 
 Port of `foldseek_tpu/search/ungapped.py`. Reference semantics
 (lib/mmseqs/src/prefiltering/ungappedprefilter.cpp):
@@ -24,17 +25,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from foldseek_tpu.db.panels import PanelSet
-from foldseek_tpu.db.storage import StructDB
-from foldseek_tpu.ops.matrices import mat3di
-from foldseek_tpu.search.params import SearchParams, can_be_covered_mask
-from foldseek_tpu.utils.log import logger
-
-from ..db.panels import from_numpy
+from ..db.panels import TorchPanelSet, resident_panels
+from ..db.storage import StructDB
 from ..device import panel_budget
+from ..nn.evalue import EvalueComputer
 from ..ops.gapless import (gapless_scores_batch, gapless_topk_batch,
                            pack_profiles_batch)
+from ..ops.matrices import mat3di
 from ..ops.sw import calc_comp_bias
+from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
+from ..utils.log import StageTimer, logger
+from .params import SearchParams, can_be_covered_mask
+from .results import AlnResult
 
 MIN_DIAG_SCORE = 15
 PREFILTER_BIAS_SCALE = 0.15
@@ -74,13 +76,15 @@ class UngappedPrefilter:
     """Bucketed target panels on `device`, scanned for query batches."""
 
     def __init__(self, tdb: StructDB, device: torch.device,
-                 budget_bytes: Optional[int] = None):
+                 budget_bytes: Optional[int] = None,
+                 panels: Optional[TorchPanelSet] = None):
         self.tdb = tdb
         self.device = torch.device(device)
-        if budget_bytes is None:
-            budget_bytes = panel_budget(self.device)
-        self.panels = from_numpy(PanelSet.from_db(tdb, budget_bytes),
-                                 self.device)
+        if panels is None:
+            if budget_bytes is None:
+                budget_bytes = panel_budget(self.device)
+            panels = TorchPanelSet(tdb, self.device, budget_bytes)
+        self.panels = panels
         self.keys = np.asarray(tdb.keys, dtype=np.int64)
         self.tlens = np.asarray(tdb.lengths(), dtype=np.int64)
         # the device top-k breaks score ties by panel row; that matches the
@@ -188,22 +192,10 @@ class UngappedPrefilter:
         return out
 
 
-_pref_cache: dict = {}   # (tdb identity, device) -> UngappedPrefilter
-
-
 def resident_prefilter(tdb: StructDB, device: torch.device) -> UngappedPrefilter:
-    """Per-process resident UngappedPrefilter: repeated searches against the
-    same target DB on the same device reuse its panels (the reference's
-    gpuserver-resident DB, lib/mmseqs/src/util/gpuserver.cpp, in-process).
-    One DB is kept at a time."""
-    device = torch.device(device)
-    key = (getattr(tdb, "path", None), id(tdb.ss), tdb.size, str(device))
-    pref = _pref_cache.get(key)
-    if pref is None:
-        pref = UngappedPrefilter(tdb, device)
-        _pref_cache.clear()
-        _pref_cache[key] = pref
-    return pref
+    """UngappedPrefilter over the DB's resident panels: repeated searches
+    against the same target DB on the same device reuse them."""
+    return UngappedPrefilter(tdb, device, panels=resident_panels(tdb, device))
 
 
 def ungapped_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
@@ -216,4 +208,131 @@ def ungapped_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
         for qi in range(qdb.size)}
     logger.info("ungapped prefilter: %d queries, avg %.1f hits",
                 qdb.size, np.mean([len(v) for v in out.values()]) if out else 0)
+    return out
+
+
+# the reference's seqId estimate from score per aligned residue when no
+# backtrace exists (Matcher::estimateSeqIdByScorePerCol)
+SEQID_SLOPE, SEQID_OFFSET = 0.1656, 0.1141
+# device bytes one (query, target) pair of mode 3 takes in `sw_scores_pairs`:
+# its plan entries (int64 offset, int32 length, int64 scratch offset) and its
+# three int32 results, plus the survivor mask and index
+MODE3_BYTES_PER_PAIR = 8 + 4 + 8 + 3 * 4 + 1 + 8
+
+
+def mode3_profile(q_ss: np.ndarray) -> np.ndarray:
+    """int32 [21, L] 3Di profile of `--prefilter-mode 3`: the prefilter's
+    matrix (bit scale 2.0) plus its composition bias."""
+    m3 = mat3di(2.0, 0.0)
+    q_ss = np.asarray(q_ss)
+    bias = calc_comp_bias(q_ss, m3.scores, m3.p_back, PREFILTER_BIAS_SCALE)
+    return m3.scores[:, q_ss].astype(np.int32) + bias[None, :].astype(np.int32)
+
+
+def sw_scores_all_targets(profs_ss, panels: TorchPanelSet, gap_open: int,
+                          gap_extend: int):
+    """3Di-only SW (score, q_end, t_end) int32 [q, n] device tensors of every
+    query profile against every target of the DB: one `sw_scores_pairs`
+    launch, or one per group of queries when the pairs' plan and results
+    exceed the device-memory budget."""
+    dev = panels.device
+    n = panels.n_entries
+    res_aa, res_ss = panels.residues()
+    toff = torch.tensor(panels.offsets[:-1])
+    tlen = torch.from_numpy(np.diff(panels.offsets))
+    budget = panel_budget(dev)
+    per_launch = len(profs_ss) if budget is None else max(
+        1, budget // max(1, MODE3_BYTES_PER_PAIR * n))
+    outs = []
+    for g in range(0, len(profs_ss), per_launch):
+        group = profs_ss[g: g + per_launch]
+        # the AA profile is all zeros: any target AA letter scores 0
+        paa, pss, slot_off = pack_sw_slots(
+            [np.zeros_like(p) for p in group], group)
+        pair_start = np.arange(len(group) + 1, dtype=np.int64) * n
+        out = sw_scores_pairs(
+            torch.from_numpy(paa).to(dev), torch.from_numpy(pss).to(dev),
+            slot_off, pair_start, res_aa, res_ss, toff.repeat(len(group)),
+            tlen.repeat(len(group)), gap_open, gap_extend)
+        outs.append(torch.stack(out).reshape(3, len(group), n))
+    return torch.cat(outs, dim=1)
+
+
+def _mode3_records(q_ss, qkey: int, ti, s, qes, tes, tkeys, tlens,
+                   ev: EvalueComputer, params: SearchParams,
+                   same_db: bool) -> List[AlnResult]:
+    """One query's mode-3 records from its survivors (target indices `ti`,
+    scores `s`, end positions `qes`, `tes`): E-value gate, order, cut."""
+    lam, mu = ev.predict_lambda_mu(q_ss)
+    distinct, inverse = np.unique(s, return_inverse=True)
+    evalue = np.array([ev.evalue_corr(int(v), lam, mu) for v in distinct],
+                      dtype=np.float64)[inverse]
+    ok = evalue <= params.evalue_thr
+    if same_db:
+        ok |= tkeys[ti] == qkey
+    ok = np.nonzero(ok)[0]
+    # compare_hits: (evalue, -score, t_len, db_key)
+    order = ok[np.lexsort((tkeys[ti[ok]], tlens[ti[ok]], -s[ok],
+                           evalue[ok]))][: params.max_seqs]
+    results = []
+    for j in order.tolist():
+        sc, qe, te = int(s[j]), int(qes[j]), int(tes[j])
+        seq_id = min(1.0, max(0.0, sc / float(max(qe, te, 1))
+                              * SEQID_SLOPE + SEQID_OFFSET))
+        results.append(AlnResult(
+            db_key=int(tkeys[ti[j]]), score=sc, seq_id=seq_id,
+            evalue=float(evalue[j]), q_start=0, q_end=qe, q_len=len(q_ss),
+            t_start=0, t_end=te, t_len=int(tlens[ti[j]]), backtrace=""))
+    return results
+
+
+def ungapped_and_gapped_results(qdb: StructDB, tdb: StructDB,
+                                params: SearchParams, same_db: bool,
+                                device: torch.device) -> Dict[int, List]:
+    """--prefilter-mode 3 (PREF_MODE_UNGAPPED_AND_GAPPED): alignment-format
+    results straight from the prefilter pass, skipping the alignment module
+    (reference: lib/mmseqs/src/prefiltering/ungappedprefilter.cpp:274-291 —
+    the GPU path where the gapped SW supplies score + end positions and
+    results carry qStart=dbStart=0, the estimated seqId, no backtrace).
+
+    Every query's 3Di profile is scored against the whole target DB by the
+    SW kernel. The survivors (same-DB identity hits and scores above
+    MIN_DIAG_SCORE) are selected on the device; on the host they are gated
+    by E-value, sorted by (evalue, -score, t_len, key) and cut at max_seqs
+    with array operations, and only the kept hits become AlnResult records.
+    E-values come from the foldseek E-value network through the scalar
+    `evalue_corr`, once per distinct score of a query, so the gate and the
+    order see the same doubles as a per-hit loop would."""
+    device = torch.device(device)
+    qkeys = np.asarray(qdb.keys, dtype=np.int64)
+    seqs = [np.asarray(qdb.get_ss(qi)) for qi in range(qdb.size)]
+    if tdb.size == 0 or not seqs:
+        return {int(k): [] for k in qkeys}
+    panels = resident_panels(tdb, device)
+    ev = EvalueComputer(tdb.total_residues)
+    tkeys = np.asarray(tdb.keys, dtype=np.int64)
+    tlens = np.diff(panels.offsets)
+    with StageTimer("sw_scoring"):
+        score, q_end, t_end = sw_scores_all_targets(
+            [mode3_profile(s) for s in seqs], panels, params.gap_open,
+            params.gap_extend)
+        keep = score > MIN_DIAG_SCORE
+        if same_db:
+            keys_dev = torch.from_numpy(tkeys).to(device)
+            keep |= (keys_dev[None, :]
+                     == torch.from_numpy(qkeys).to(device)[:, None])
+        hit_q, hit_t = (x.cpu().numpy() for x in keep.nonzero(as_tuple=True))
+        hit_s, hit_qe, hit_te = (x[keep].cpu().numpy().astype(np.int64)
+                                 for x in (score, q_end, t_end))
+    out: Dict[int, List] = {}
+    with StageTimer("host_loop"):
+        bounds = np.searchsorted(hit_q, np.arange(qdb.size + 1))
+        for qi, q_ss in enumerate(seqs):
+            sel = slice(bounds[qi], bounds[qi + 1])
+            out[int(qkeys[qi])] = _mode3_records(
+                q_ss, int(qkeys[qi]), hit_t[sel], hit_s[sel], hit_qe[sel],
+                hit_te[sel], tkeys, tlens, ev, params, same_db)
+    logger.info("ungapped+gapped prefilter: %d queries x %d targets, avg "
+                "%.1f hits", qdb.size, tdb.size,
+                np.mean([len(v) for v in out.values()]))
     return out

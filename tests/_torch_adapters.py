@@ -1,11 +1,12 @@
 """Shape adapters for the port's tests: the JAX package's kernel entry points
 (padded target panels, stacked slots, one tall query) expressed through the
-port's two launch points, `gapless_scores_batch` and `sw_scores_pairs`. The
-port's search path calls those two directly; these adapters exist so a test
-can feed both packages the same padded inputs."""
+port's launch points, `gapless_scores_batch`, `gapless_scores_dual` and
+`sw_scores_pairs`. The port's search path calls those directly; these
+adapters exist so a test can feed both packages the same padded inputs."""
 import numpy as np
 import torch
 
+from foldseek_tpu_torch.ops import gapless as tg
 from foldseek_tpu_torch.ops.gapless import PAD_LETTER, gapless_scores_batch
 from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
 
@@ -32,6 +33,34 @@ def gapless_scores_long(prof: torch.Tensor, t_T: torch.Tensor,
     q_off = torch.tensor([0, prof.shape[0]], dtype=torch.int32, device=dev)
     caps = torch.tensor([int(cap)], dtype=torch.int32, device=dev)
     return gapless_scores_batch(prof, q_off, caps, t_T)[0]
+
+
+def gapless_scores_single(prof: torch.Tensor, t_T: torch.Tensor,
+                          cap=None) -> torch.Tensor:
+    """One query against one panel with one scalar cap, or none (K5's
+    contract): prof int32 [Lq, 32] from `pack_profile`, t_T int8 [Lt, B].
+    Returns int32 [B]."""
+    return gapless_scores_long(prof, t_T, tg.NO_CAP if cap is None else cap)
+
+
+def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
+                        t_aa_T: torch.Tensor,
+                        t_ss_T: torch.Tensor) -> torch.Tensor:
+    """One query's AA and 3Di profiles (int32 [Lq, 32] each) against the two
+    panels of the same targets (K6's contract). Returns int32 [B]."""
+    q_off = torch.tensor([0, prof_aa.shape[0]], dtype=torch.int32,
+                         device=t_aa_T.device)
+    return tg.gapless_scores_dual(prof_aa, prof_ss, q_off, t_aa_T, t_ss_T)[0]
+
+
+def sw_scores_batch(prof_aa, prof_ss, slot_off, t_aa, t_ss, t_len, q: int,
+                    gap_open: int = 10, gap_extend: int = 1):
+    """q slots sharing one list of B padded targets (K7's contract): t_aa,
+    t_ss int8 [B, Lt], t_len [B]. Returns (score, q_end, t_end) int32
+    [q, B]."""
+    return sw_scores_batch_multi(prof_aa, prof_ss, slot_off, t_aa[None],
+                                 t_ss[None], torch.as_tensor(t_len)[None], 1,
+                                 q, gap_open, gap_extend)
 
 
 def sw_scores_batch_multi(prof_aa, prof_ss, slot_off, t_aa, t_ss, t_len,

@@ -77,6 +77,47 @@ def test_gapless_wrapper_rejects_bad_inputs(cuda):
         tg.gapless_scores_batch(prof.cpu(), q_off, caps, t_T)
 
 
+@pytest.mark.parametrize("cap", [None, 30])
+def test_gapless_single_shape_on_card(cuda, cap):
+    """K5's call shape (one query, one scalar cap or none) through the
+    gapless kernel equals the plain version."""
+    rng = np.random.RandomState(12)
+    prof, _q_off, _caps, t_T = _gapless_inputs(rng, [77], 300, cuda)
+    got = ad.gapless_scores_single(prof, t_T, cap)
+    torch.cuda.synchronize()
+    want = ad.gapless_scores_single(prof.cpu(), t_T.cpu(), cap)
+    assert torch.equal(got.cpu(), want)
+    if cap is not None:
+        assert 0 < int(got.max()) <= cap
+
+
+@pytest.mark.parametrize("lens", [[64], [40, 7, 93, 300]])
+def test_gapless_dual_kernel_matches_plain(cuda, lens):
+    """K6: the dual-alphabet kernel, one query and a ragged stack, against
+    AA + 3Di panels of 500 targets (pad letter 21 in both)."""
+    rng = np.random.RandomState(len(lens))
+    profs = [QueryProfile(rng.randint(0, 20, L).astype(np.int8),
+                          rng.randint(0, 20, L).astype(np.int8)) for L in lens]
+    t_len = rng.randint(5, 250, 500)
+    aa = [rng.randint(0, 20, L).astype(np.int8) for L in t_len]
+    ss = [rng.randint(0, 20, L).astype(np.int8) for L in t_len]
+    stack_aa, q_off, _ = tg.pack_profiles_batch([p.prof_aa for p in profs],
+                                                [0] * len(profs))
+    stack_ss, _, _ = tg.pack_profiles_batch([p.prof_ss for p in profs],
+                                            [0] * len(profs))
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        stack_aa, stack_ss, q_off, ad.prepare_targets_T(aa, t_len, lt_pad=256),
+        ad.prepare_targets_T(ss, t_len, lt_pad=256))]
+    before = tg.gapless_scores_dual.launches
+    got = tg.gapless_scores_dual(*args)
+    torch.cuda.synchronize()
+    assert tg.gapless_scores_dual.launches == before + 1
+    assert torch.equal(got, tg.gapless_scores_dual_torch(*args))
+    assert int(got.max()) > 0 and not got[:, 500:].any()
+    with pytest.raises(ValueError):
+        tg.gapless_scores_dual(args[0], args[1][:-1], *args[2:])
+
+
 def _sw_inputs(rng, lens, n_targets, n_cand, dev):
     res = [(rng.randint(0, 20, L).astype(np.int8),
             rng.randint(0, 20, L).astype(np.int8))
@@ -140,6 +181,27 @@ def test_sw_batch_multi_and_query_on_card(cuda):
         assert torch.equal(o.cpu(), c[0])
 
 
+def test_sw_batch_shape_on_card(cuda):
+    """K7's call shape: q slots sharing one list of padded targets."""
+    rng = np.random.RandomState(9)
+    q, B, Lt = 6, 200, 120
+    profs = [QueryProfile(rng.randint(0, 20, L).astype(np.int8),
+                          rng.randint(0, 20, L).astype(np.int8))
+             for L in rng.randint(10, 300, q)]
+    paa, pss, so = tk.pack_sw_slots([p.prof_aa for p in profs],
+                                    [p.prof_ss for p in profs])
+    t_aa = torch.from_numpy(rng.randint(0, 20, (B, Lt)).astype(np.int8))
+    t_ss = torch.from_numpy(rng.randint(0, 20, (B, Lt)).astype(np.int8))
+    t_len = torch.from_numpy(rng.randint(0, Lt + 1, B))
+    cpu = ad.sw_scores_batch(torch.from_numpy(paa), torch.from_numpy(pss), so,
+                             t_aa, t_ss, t_len, q)
+    gpu = ad.sw_scores_batch(torch.from_numpy(paa).to(cuda),
+                             torch.from_numpy(pss).to(cuda), so,
+                             t_aa.to(cuda), t_ss.to(cuda), t_len, q)
+    for g, c in zip(gpu, cpu):
+        assert g.shape == (q, B) and torch.equal(g.cpu(), c)
+
+
 def _fixture_dbs(tmp_path, n_targets, n_queries):
     from foldseek_tpu_torch.db import create_db, synth_db
     files = ([str(p) for p in sorted((GOLDEN / "msa" / "sup").glob("*.pdb"))]
@@ -171,13 +233,19 @@ def test_prefilter_split_and_topk_on_card(cuda, tmp_path, monkeypatch):
     assert topk == [w[:40] for w in want]
 
 
-def test_search_on_card_matches_cpu(cuda, tmp_path):
+@pytest.mark.parametrize("mode", [1, 3])
+def test_search_on_card_matches_cpu(cuda, tmp_path, mode):
+    """m8 on cuda == m8 on cpu, for the --gpu 1 path and for
+    --prefilter-mode 3 (3Di-only profiles: ties in the end positions are
+    commoner than with two alphabets)."""
     from foldseek_tpu_torch.search import SearchParams, format_results, search
     tdb, qdb = _fixture_dbs(tmp_path, 1500, 6)
     lines = {}
     for dev in (cuda, torch.device("cpu")):
-        params = SearchParams(prefilter_mode=1, add_backtrace=True)
+        params = SearchParams(prefilter_mode=mode, add_backtrace=mode == 1)
+        before = tk.sw_scores_pairs.launches
         res = search(qdb, tdb, params, dev, same_db=False)
+        assert (tk.sw_scores_pairs.launches > before) == (dev.type == "cuda")
         lines[dev.type] = format_results(qdb, tdb, res, params.format_output,
-                                         with_backtrace=True)
+                                         with_backtrace=mode == 1)
     assert len(lines["cpu"]) > 1000 and lines["cuda"] == lines["cpu"]

@@ -135,3 +135,93 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
 def test_pack_profile_rejects_fractional_scores():
     with pytest.raises(ValueError):
         tg.pack_profile(np.full((21, 3), 0.5, np.float32))
+
+
+@pytest.mark.parametrize("cap", [None, 30.0, 225.0])
+def test_gapless_single_matches_jax_and_oracle(cap):
+    """K5's contract (one query, one scalar cap or none, 8 targets padded to
+    128 as tests/test_prefilter.py does): the adapter over the port's launch
+    point equals `gapless_scores_single` in interpret mode, and without a cap
+    the numpy oracle `gapless_scores_np`. Exact: all scores are integers."""
+    from foldseek_tpu.ops.gapless import gapless_scores_np
+    rng = np.random.RandomState(13)
+    m3 = mat3di(2.0, 0.0)
+    prof = m3.scores[:, rng.randint(0, 20, 77)].astype(np.float32)
+    seqs, jt, tt = _targets(rng, 8, 20, 150)
+    assert jt.shape[1] == 128
+    want = np.asarray(jg.gapless_scores_single(
+        jnp.asarray(jg.pack_profile(prof)), jnp.asarray(jt),
+        None if cap is None else jnp.float32(cap)))
+    got = ad.gapless_scores_single(torch.from_numpy(tg.pack_profile(prof)),
+                                   torch.from_numpy(tt), cap).numpy()
+    assert got.dtype == np.int32 and got.shape == (128,)
+    assert np.array_equal(got, want.astype(np.int64))
+    assert not got[8:].any()           # pad targets score 0
+    if cap is None:
+        zeros = np.zeros_like(prof, dtype=np.int64)
+        for i, seq in enumerate(seqs):
+            assert got[i] == gapless_scores_np(prof.astype(np.int64), zeros,
+                                               seq, np.zeros_like(seq))
+    elif cap == 30.0:
+        assert (got[:8] == 30).any()   # the cap bound somewhere
+
+
+def _dual_inputs(rng, lens, n_targets):
+    from foldseek_tpu.ops.matrices import blosum62
+    m3, mb = mat3di(2.0, 0.0), blosum62()
+    profs = [(mb.scores[:, rng.randint(0, 20, L)].astype(np.float32),
+              m3.scores[:, rng.randint(0, 20, L)].astype(np.float32))
+             for L in lens]
+    t_len = rng.randint(15, 120, n_targets)
+    aa = [rng.randint(0, 20, L).astype(np.int8) for L in t_len]
+    ss = [rng.randint(0, 20, L).astype(np.int8) for L in t_len]
+    return profs, aa, ss, t_len
+
+
+def test_gapless_dual_matches_jax_and_oracle():
+    """K6's contract: one query's AA + 3Di profiles against the two panels
+    of 8 targets padded to 128; equals `gapless_scores_dual` in interpret
+    mode and `gapless_scores_np`. Exact."""
+    from foldseek_tpu.ops.gapless import gapless_scores_np
+    rng = np.random.RandomState(17)
+    [(paa, pss)], aa, ss, t_len = _dual_inputs(rng, [64], 8)
+    want = np.asarray(jg.gapless_scores_dual(
+        jnp.asarray(jg.pack_profile(paa)), jnp.asarray(jg.pack_profile(pss)),
+        jnp.asarray(jg.prepare_targets_T(aa, t_len)),
+        jnp.asarray(jg.prepare_targets_T(ss, t_len))))
+    got = ad.gapless_scores_dual(
+        torch.from_numpy(tg.pack_profile(paa)),
+        torch.from_numpy(tg.pack_profile(pss)),
+        torch.from_numpy(ad.prepare_targets_T(aa, t_len)),
+        torch.from_numpy(ad.prepare_targets_T(ss, t_len))).numpy()
+    assert got.dtype == np.int32 and got.shape == (128,)
+    assert np.array_equal(got, want.astype(np.int64))
+    assert got[:8].min() > 0 and not got[8:].any()
+    for i in range(8):
+        assert got[i] == gapless_scores_np(paa.astype(np.int64),
+                                           pss.astype(np.int64), aa[i], ss[i])
+
+
+def test_gapless_dual_stack_matches_single_queries():
+    """A ragged stack of queries through `gapless_scores_dual` gives each
+    query's row as the one-query call does, and the CPU wrapper runs the
+    plain version without counting a launch."""
+    rng = np.random.RandomState(19)
+    profs, aa, ss, t_len = _dual_inputs(rng, [40, 7, 93], 30)
+    t_aa = torch.from_numpy(ad.prepare_targets_T(aa, t_len))
+    t_ss = torch.from_numpy(ad.prepare_targets_T(ss, t_len))
+    stack_aa, q_off, _ = tg.pack_profiles_batch([p for p, _ in profs],
+                                                [0] * len(profs))
+    stack_ss, _, _ = tg.pack_profiles_batch([p for _, p in profs],
+                                            [0] * len(profs))
+    before = tg.gapless_scores_dual.launches
+    got = tg.gapless_scores_dual(torch.from_numpy(stack_aa),
+                                 torch.from_numpy(stack_ss),
+                                 torch.from_numpy(q_off), t_aa, t_ss)
+    assert tg.gapless_scores_dual.launches == before
+    assert got.shape == (3, 128)
+    for k, (paa, pss) in enumerate(profs):
+        one = ad.gapless_scores_dual(torch.from_numpy(tg.pack_profile(paa)),
+                                     torch.from_numpy(tg.pack_profile(pss)),
+                                     t_aa, t_ss)
+        assert torch.equal(got[k], one)

@@ -191,3 +191,36 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
                        torch.from_numpy(prof.prof_ss), torch.from_numpy(t_aa),
                        torch.from_numpy(t_ss), t_len)
     assert tk.sw_scores_pairs.launches == before
+
+
+def test_batch_matches_jax():
+    """K7's contract: q = 4 slots sharing one list of 128 targets, built as
+    tests/test_sw_parity.py builds `sw_scores_batch`'s inputs; the adapter
+    over `sw_scores_pairs` equals the Pallas kernel in interpret mode and
+    the scalar oracle. Exact (q_end where the score is > 0, see above)."""
+    rng = np.random.RandomState(23)
+    q, lq_pad, Lt, B = 4, 64, 96, 128
+    profs_aa = [rng.randint(-8, 9, (21, L)).astype(np.float32)
+                for L in rng.randint(20, lq_pad - 1, q)]
+    profs_ss = [rng.randint(-8, 9, p.shape).astype(np.float32)
+                for p in profs_aa]
+    t_aa, t_ss, t_len = _padded_targets(rng, B, Lt)
+    want = jsp.sw_scores_batch(
+        *(jnp.asarray(x) for x in jsp.pack_sw_profiles_batch(
+            profs_aa, profs_ss, lq_pad)),
+        jnp.asarray(t_aa.T.astype(np.int32)),
+        jnp.asarray(t_ss.T.astype(np.int32)), jnp.asarray(t_len), q, lq_pad)
+    paa, pss, slot_off = tk.pack_sw_slots(profs_aa, profs_ss)
+    got = ad.sw_scores_batch(
+        torch.from_numpy(paa), torch.from_numpy(pss), slot_off,
+        torch.from_numpy(t_aa), torch.from_numpy(t_ss),
+        torch.from_numpy(t_len), q)
+    assert all(x.shape == (q, B) and x.dtype == torch.int32 for x in got)
+    assert _assert_endpos(got, want) > q * B // 2
+    for k in range(q):
+        for b in range(0, B, 17):
+            s, qe, te = jsw.sw_score_endpos_np(
+                profs_aa[k].astype(np.int64), profs_ss[k].astype(np.int64),
+                t_aa[b, :t_len[b]], t_ss[b, :t_len[b]])
+            assert (int(got[0][k, b]), int(got[2][k, b])) == (s, te)
+            assert s == 0 or int(got[1][k, b]) == qe
