@@ -31,6 +31,16 @@ Phases (any failure exits nonzero and prints no result line):
      beside its kernel time (torch.profiler).
   7. parity: on a 2000-target DB the m8 lines on cuda equal those on cpu,
      for mode 1 and mode 3.
+  8. boundaries: both kernels vs their plain versions, exact, at the shapes
+     where their branches change: slot and query lengths just below, at and
+     above every instance and pass boundary, a batch mixing a 20-row and a
+     1,500-row slot, targets of length 1 and of the panel's full padded
+     length, a stack whose caps force the 32-bit gapless instance.
+Beside every kernel time stands the time of the kernel it replaced
+(csrc/*_v1.cu, which only this script loads), taken in the same run in
+turns: old, new, new, old. ptxas's registers, shared memory and spills of
+every instance are copied from the nvcc logs; a spill in a current kernel
+fails the run.
 The line before the card's line is a JSON object with each kernel's
 launches, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Details go to DIR/chip_smoke.json and DIR/nvcc_*.log (default
@@ -40,7 +50,9 @@ The bound of a kernel is the larger of two times: the bytes it must move
 (each input read once, each output written once) over the card's memory
 rate, and its DP cells over real residues times the integer instructions of
 one cell over the card's INT32 rate (SMs x 64 lanes x the maximum SM clock
-that nvidia-smi reports).
+that nvidia-smi reports). The instructions of one cell are the fewest any
+kernel for this card could do with (see the constants below), not what the
+repo's kernels execute.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ import argparse
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,13 +71,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
-# integer instructions one DP cell needs at least: gapless viaddmax, min
-# (cap), max (best) - the dual kernel trades the min for the add of its two
-# profile scores; SW: s = aa + ss, viaddmax_relu(diag, s, E), g = h + i*ge,
-# one max of the prefix scan, F = prefix - const, H = max(h, F), E = max(E -
-# ge, h - go) (3), the column max
-GAPLESS_OPS_PER_CELL = 3
-SW_OPS_PER_CELL = 10
+# Integer instructions one DP cell needs at least on this card.
+# Gapless, capped: h = viaddmin_relu(h_diag, s, cap) is one instruction and
+# vimax3(best, h, h') folds two cells into the best, 1.5 a cell; where the
+# caps or the lengths, and the profile range, keep h inside 16 bits the
+# s16x2 forms do two cells each, 0.75 a cell; every timed single-alphabet
+# shape of this script is of that kind (without a cap, too: its diagonals
+# are too short to pass 16 bits). Dual: one more for the add of the two profile scores, 2.5.
+# SW, from the in-register recurrence: s = aa + ss; h_noF =
+# viaddmax_relu(diag, s, E); hgo = h_noF - go; E = viaddmax(E, -ge, hgo);
+# F = viaddmax(F, -ge, hgo); H = max(h_noF, F); half a vimax3 for the best:
+# 6.5, and 5.5 where the AA profile is all zero and s needs no add.
+GAPLESS_PACKED_OPS = 0.75
+GAPLESS_DUAL_OPS = 2.5
+SW_OPS_PER_CELL = 6.5
+SW_OPS_NO_AA = 5.5
 MODE3_CHUNK = 20_000           # targets per plain-version comparison
 NO_LIBRARY = None              # no single PyTorch call computes these DPs
 
@@ -87,6 +108,135 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(old, new, reps: int = 1):
+    """(old ms, new ms) of two versions timed in turns on the same card:
+    old, new, new, old; each figure is the mean of its two turns."""
+    a = cuda_ms(old, reps)
+    b = cuda_ms(new, reps)
+    c = cuda_ms(new, reps)
+    d = cuda_ms(old, reps)
+    return (a + d) / 2, (b + c) / 2
+
+
+# --- the kernels of the version before (csrc/*_v1.cu), for timing only --------
+
+def _v1_lib(name: str):
+    import ctypes
+
+    from foldseek_tpu_torch.ops import _build
+    lib = _build.load(name + "_v1").lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "gapless" and lib.gapless_scores.argtypes is None:
+        lib.gapless_scores.argtypes = [p, p, p, i, p, i, i, ll, p, p]
+        lib.gapless_scores_dual.argtypes = [p, p, p, i, p, p, i, i, ll, ll,
+                                            p, p]
+    if name == "sw" and lib.sw_scores.argtypes is None:
+        lib.sw_scores.argtypes = [i, i, p, p, p, ll, p, p, p, p, p, p, p, p,
+                                  p, p, i, i, p, p, p]
+    return lib
+
+
+def _stream(dev):
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def v1_gapless(prof, q_off, caps, t_T):
+    import torch
+    q, (Lt, B) = q_off.numel() - 1, t_T.shape
+    out = torch.empty((q, B), dtype=torch.int32, device=t_T.device)
+    rc = _v1_lib("gapless").gapless_scores(
+        prof.data_ptr(), q_off.data_ptr(), caps.data_ptr(), q, t_T.data_ptr(),
+        Lt, B, t_T.stride(0), out.data_ptr(), _stream(t_T.device))
+    if rc != 0:
+        raise RuntimeError(f"v1 gapless kernel: CUDA error {rc}")
+    return out
+
+
+def v1_gapless_dual(prof_aa, prof_ss, q_off, t_aa_T, t_ss_T):
+    import torch
+    q, (Lt, B) = q_off.numel() - 1, t_aa_T.shape
+    out = torch.empty((q, B), dtype=torch.int32, device=t_aa_T.device)
+    rc = _v1_lib("gapless").gapless_scores_dual(
+        prof_aa.data_ptr(), prof_ss.data_ptr(), q_off.data_ptr(), q,
+        t_aa_T.data_ptr(), t_ss_T.data_ptr(), Lt, B, t_aa_T.stride(0),
+        t_ss_T.stride(0), out.data_ptr(), _stream(t_aa_T.device))
+    if rc != 0:
+        raise RuntimeError(f"v1 dual gapless kernel: CUDA error {rc}")
+    return out
+
+
+def v1_sw(prof_aa, prof_ss, slot_off, pair_start, res_aa, res_ss, pair_toff,
+          pair_tlen, gap_open=10, gap_extend=1):
+    """The earlier SW kernel behind its earlier wrapper: one warp a pair,
+    the block table and the scratch offsets built on the host."""
+    import torch
+    dev = res_aa.device
+    so, ps, toff, tlen = (torch.as_tensor(x).to("cpu", torch.long)
+                          for x in (slot_off, pair_start, pair_toff, pair_tlen))
+    S, lens, counts = so.numel() - 1, so.diff(), ps.diff()
+    P = int(ps[-1])
+    out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3)]
+    R = min(8, max(1, -(-int(lens.max()) // 32)))
+    nblk_slot = -(-counts // 4)
+    blk_slot = torch.repeat_interleave(torch.arange(S), nblk_slot)
+    first_blk = torch.cumsum(nblk_slot, 0) - nblk_slot
+    blk_p0 = ps[blk_slot] + 4 * (torch.arange(blk_slot.numel())
+                                 - first_blk[blk_slot])
+    pair_slot = torch.repeat_interleave(torch.arange(S), counts)
+    scr_len = torch.where((lens > 32 * R)[pair_slot], 4 * tlen, 0)
+    pair_scr = torch.cumsum(scr_len, 0) - scr_len
+    scratch = torch.empty(max(1, int(scr_len.sum())), dtype=torch.int32,
+                          device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    plan = [so.to(**i32), blk_slot.to(**i32), blk_p0.to(**i32),
+            ps[blk_slot + 1].to(**i32)]
+    pairs = [toff.to(dev), tlen.to(**i32), pair_scr.to(dev)]
+    rc = _v1_lib("sw").sw_scores(
+        R, blk_slot.numel(), _stream(dev), prof_aa.data_ptr(),
+        prof_ss.data_ptr(), prof_aa.shape[1], *(t.data_ptr() for t in plan),
+        res_aa.data_ptr(), res_ss.data_ptr(), *(t.data_ptr() for t in pairs),
+        scratch.data_ptr(), gap_open, gap_extend,
+        *(t.data_ptr() for t in out))
+    if rc != 0:
+        raise RuntimeError(f"v1 SW kernel: CUDA error {rc}")
+    return tuple(out)
+
+
+def ptxas_instances(log: str):
+    """[{kernel, registers, smem, spill_stores, spill_loads}] from nvcc's
+    `-Xptxas -v` output, one entry per compiled kernel instance."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(sw_kernel|gapless_kernel)I\w+?EE|target_lengths",
+                          name)
+            name = k.group(0) if k else name
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            smem=int(m.group(2) or 0) + dynamic_smem(name),
+                            spill_stores=spills[0], spill_loads=spills[1]))
+    return out
+
+
+def dynamic_smem(kernel: str) -> int:
+    """Bytes of dynamic shared memory the current gapless kernels are
+    launched with (the tile of their tallest strip, `Layout` in
+    csrc/gapless.cu): ptxas sees only static shared memory."""
+    m = re.fullmatch(r"gapless_kernelILb([01])ELb([01])E\w+", kernel)
+    if not m:
+        return 0
+    packed, dual = (int(x) for x in m.groups())
+    stride = 192 * 8 if packed else 32 + 8     # int16 per letter
+    return (2 if dual else 1) * 21 * stride * 2
 
 
 def profiled_kernel_ms(fn, name_part: str):
@@ -125,7 +275,7 @@ class Card:
             check=True).stdout.split()[0])
         self.int32_per_s = self.sms * INT32_LANES_PER_SM * self.sm_mhz * 1e6
 
-    def bound(self, cells: int, ops_per_cell: int, nbytes: int) -> dict:
+    def bound(self, cells: int, ops_per_cell: float, nbytes: int) -> dict:
         op_ms = cells * ops_per_cell / self.int32_per_s * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return dict(bound_ms=max(op_ms, byte_ms),
@@ -138,6 +288,7 @@ def total(records) -> dict:
     bounds summed, bound by what bounds the largest of them."""
     return dict(max_abs_err=max(r["max_abs_err"] for r in records),
                 ms=sum(r["ms"] for r in records),
+                v1_ms=sum(r["v1_ms"] for r in records),
                 plain_ms=sum(r["plain_ms"] for r in records),
                 bound_ms=sum(r["bound_ms"] for r in records),
                 bound_by=max(records,
@@ -179,9 +330,17 @@ def prefilter_stack(seqs, dev, capped: bool = True):
             for a in pack_profiles_batch(profs, caps)]
 
 
+def same(got, want, what: str) -> None:
+    import torch
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: the earlier kernel and the current "
+                             "one disagree")
+
+
 def gapless_case(card, label, args, real_residues, report_list, reps=5):
     """Drive the single-alphabet gapless kernel once against its plain
-    version and time both; returns the shape record."""
+    version and time it, its predecessor and the plain version; returns the
+    shape record."""
     import torch
 
     from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
@@ -189,18 +348,23 @@ def gapless_case(card, label, args, real_residues, report_list, reps=5):
     prof, q_off, caps, t_dev = args
     got = gapless_scores_batch(*args)
     want = gapless_scores_batch_torch(*args)
+    same([got], [v1_gapless(*args)], f"gapless {label}")
     torch.cuda.synchronize()
+    v1_ms, ms = turns_ms(lambda: v1_gapless(*args),
+                         lambda: gapless_scores_batch(*args), reps)
     rec = dict(label=label, max_abs_err=max_abs_err([got], [want]),
-               ms=cuda_ms(lambda: gapless_scores_batch(*args), reps),
+               ms=ms, v1_ms=v1_ms,
+               kernel_ms=profiled_kernel_ms(
+                   lambda: gapless_scores_batch(*args), "gapless_kernel"),
                plain_ms=cuda_ms(lambda: gapless_scores_batch_torch(*args)),
-               max_score=int(got.max()),
-               **card.bound(int(q_off[-1]) * real_residues,
-                            GAPLESS_OPS_PER_CELL,
+               max_score=int(got.max()), ops_per_cell=GAPLESS_PACKED_OPS,
+               **card.bound(int(q_off[-1]) * real_residues, GAPLESS_PACKED_OPS,
                             nbytes(prof, q_off, caps, t_dev, got)))
-    log(f"gapless {label}: max_abs_err={rec['max_abs_err']} kernel "
-        f"{rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
-        f"{rec['cells'] / rec['ms'] / 1e6:.1f} GCUPS over real cells")
+    log(f"gapless {label}: max_abs_err={rec['max_abs_err']} wrapper "
+        f"{ms:.3f} ms (v1 {v1_ms:.3f}; kernel alone by the profiler "
+        f"{rec['kernel_ms']}) plain {rec['plain_ms']:.3f} ms bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, {GAPLESS_PACKED_OPS} "
+        f"ops/cell), {rec['cells'] / ms / 1e6:.1f} GCUPS over real cells")
     report_list.append(rec)
     return rec
 
@@ -238,11 +402,28 @@ def phase_gapless(card, dev, tdb, qdb, pieces, report):
                             report["gapless"], reps=1)
     if long_rec["max_abs_err"] or any(r["max_abs_err"] for r in records):
         raise AssertionError("gapless kernel disagrees with its plain version")
+    # the top-k that follows the kernel on the main path (torch.topk on a
+    # packed key; the JAX package too selects outside any kernel body)
+    from foldseek_tpu_torch.ops.gapless import gapless_scores_batch, topk_rows
+    topk = []
+    for b, t, _real in pieces:
+        scores = gapless_scores_batch(*stack, t)
+        k = min(t.shape[1], 1000)
+        top_s, top_r = topk_rows(scores, k)
+        rec = dict(label=f"top-{k} of {tuple(scores.shape)} scores",
+                   ms=cuda_ms(lambda: topk_rows(scores, k), 5),
+                   bound_ms=nbytes(scores, top_s, top_r) / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        log(f"gapless top-k {rec['label']}: {rec['ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms (bytes)")
+        topk.append(rec)
+    report["gapless_topk"] = topk
     return total(records)
 
 
-def sw_case(card, label, args, report_list, reps=5):
-    """Drive the SW kernel once against its plain version and time both."""
+def sw_case(card, label, args, report_list, reps=5, ops=SW_OPS_PER_CELL):
+    """Drive the SW kernel once against its plain version and time it, its
+    predecessor and the plain version."""
     import numpy as np
     import torch
 
@@ -251,23 +432,28 @@ def sw_case(card, label, args, report_list, reps=5):
     paa, pss, slot_off, pair_start, _ra, _rs, toff, tlen = args
     got = sw_scores_pairs(*args)
     want = sw_scores_pairs_torch(*args)
+    same(got, v1_sw(*args), f"sw {label}")
     torch.cuda.synchronize()
     toff, tlen = np.asarray(toff), np.asarray(tlen)
     pairs = np.diff(np.asarray(pair_start))
     cells = int((np.repeat(np.diff(np.asarray(slot_off)), pairs) * tlen).sum())
     _, first = np.unique(toff, return_index=True)
     moved = (nbytes(paa, pss) + 2 * int(tlen[first].sum())
-             + len(tlen) * (8 + 4 + 8 + 3 * 4))
+             + len(tlen) * (8 + 4 + 3 * 4))
+    v1_ms, ms = turns_ms(lambda: v1_sw(*args),
+                         lambda: sw_scores_pairs(*args), reps)
     rec = dict(label=label, pairs=len(tlen),
-               max_abs_err=max_abs_err(got, want),
-               ms=cuda_ms(lambda: sw_scores_pairs(*args), reps),
+               max_abs_err=max_abs_err(got, want), ms=ms, v1_ms=v1_ms,
+               kernel_ms=profiled_kernel_ms(lambda: sw_scores_pairs(*args),
+                                            "sw_kernel"),
                plain_ms=cuda_ms(lambda: sw_scores_pairs_torch(*args)),
-               positive=int((got[0] > 0).sum()),
-               **card.bound(cells, SW_OPS_PER_CELL, moved))
+               positive=int((got[0] > 0).sum()), ops_per_cell=ops,
+               **card.bound(cells, ops, moved))
     log(f"sw {label}: {rec['pairs']} pairs, max_abs_err={rec['max_abs_err']} "
-        f"kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
-        f"{cells / rec['ms'] / 1e6:.1f} GCUPS, pairs with score > 0: "
+        f"wrapper {ms:.3f} ms (v1 {v1_ms:.3f}; kernel alone by the profiler "
+        f"{rec['kernel_ms']}) plain {rec['plain_ms']:.3f} ms "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, {ops} ops/cell), "
+        f"{cells / ms / 1e6:.1f} GCUPS, pairs with score > 0: "
         f"{rec['positive']}")
     report_list.append(rec)
     return rec
@@ -400,18 +586,21 @@ def phase_call_shapes(card, dev, tdb, qdb, pieces, panels, report):
         args = (aa, ss, q_off, t_aa, t_ss)
         got = tg.gapless_scores_dual(*args)
         want = tg.gapless_scores_dual_torch(*args)
+        same([got], [v1_gapless_dual(*args)], f"gapless_dual {label}")
         torch.cuda.synchronize()
+        v1_ms, ms = turns_ms(lambda: v1_gapless_dual(*args),
+                             lambda: tg.gapless_scores_dual(*args), 5)
         rec = dict(label=label, max_abs_err=max_abs_err([got], [want]),
-                   ms=cuda_ms(lambda: tg.gapless_scores_dual(*args), 5),
+                   ms=ms, v1_ms=v1_ms,
                    plain_ms=cuda_ms(
                        lambda: tg.gapless_scores_dual_torch(*args)),
-                   max_score=int(got.max()),
-                   **card.bound(int(q_off[-1]) * real, GAPLESS_OPS_PER_CELL,
+                   max_score=int(got.max()), ops_per_cell=GAPLESS_DUAL_OPS,
+                   **card.bound(int(q_off[-1]) * real, GAPLESS_DUAL_OPS,
                                 nbytes(aa, ss, q_off, t_aa, t_ss, got)))
         log(f"gapless_dual {label}: max_abs_err={rec['max_abs_err']} kernel "
-            f"{rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms bound "
-            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), max score "
-            f"{rec['max_score']}")
+            f"{ms:.3f} ms (v1 {v1_ms:.3f}) plain {rec['plain_ms']:.3f} ms "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
+            f"{GAPLESS_DUAL_OPS} ops/cell), max score {rec['max_score']}")
         report["gapless_dual"].append(rec)
         dual.append(rec)
         err = max(err, rec["max_abs_err"])
@@ -520,22 +709,35 @@ def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
         records.append(sw_case(
             card, f"mode 3: {qdb.size} queries x targets {c0}..{chunk[-1]}",
             sw_args(paa, pss, [chunk] * len(pss), panels, dev),
-            report["sw_mode3"], reps=2))
+            report["sw_mode3"], reps=2, ops=SW_OPS_NO_AA))
     if any(r["max_abs_err"] for r in records):
         raise AssertionError("SW kernel disagrees with its plain version at "
                              "mode-3 shapes")
-    whole = sw_args(paa, pss, [np.arange(tdb.size)] * len(pss), panels, dev)
-    wrapper_ms = cuda_ms(lambda: sw_scores_pairs(*whole), 3)
+    # the whole DB in one call, as the search path makes it: the plan of
+    # the pairs built on the card
+    whole = list(sw_args(paa, pss, [np.arange(tdb.size)] * len(pss), panels,
+                         dev))
+    on_host = tuple(whole)
+    whole[6] = torch.as_tensor(whole[6]).to(dev)
+    whole[7] = torch.as_tensor(whole[7]).to(dev, torch.int32)
+    same(sw_scores_pairs(*whole), v1_sw(*on_host), "sw mode 3 whole DB")
+    v1_wrapper_ms, wrapper_ms = turns_ms(lambda: v1_sw(*on_host),
+                                         lambda: sw_scores_pairs(*whole), 3)
     kernel_ms = profiled_kernel_ms(lambda: sw_scores_pairs(*whole),
                                    "sw_kernel")
+    v1_kernel_ms = profiled_kernel_ms(lambda: v1_sw(*on_host), "sw_kernel")
     torch.cuda.synchronize()
+
+    def shown(ms):
+        return "not measured" if ms is None else f"{ms:.3f} ms"
+
     log(f"sw mode 3 whole DB ({tdb.size * len(pss)} pairs): wrapper "
-        f"{wrapper_ms:.3f} ms (CUDA events, host plan included), kernel "
-        f"{'not measured' if kernel_ms is None else f'{kernel_ms:.3f} ms'} "
-        f"(torch.profiler)")
-    report["sw_mode3_whole"] = dict(pairs=tdb.size * len(pss),
-                                    wrapper_ms=wrapper_ms,
-                                    kernel_ms=kernel_ms)
+        f"{wrapper_ms:.3f} ms (v1 {v1_wrapper_ms:.3f}; CUDA events, plan "
+        f"included), kernel {shown(kernel_ms)} (v1 {shown(v1_kernel_ms)}; "
+        f"torch.profiler)")
+    report["sw_mode3_whole"] = dict(
+        pairs=tdb.size * len(pss), wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
+        v1_wrapper_ms=v1_wrapper_ms, v1_kernel_ms=v1_kernel_ms)
     return total(records)
 
 
@@ -554,6 +756,127 @@ def phase_parity(dev, pdb, qdb, report):
         if not same or not on_gpu:
             raise AssertionError(f"mode {mode}: m8 on cuda differs from m8 "
                                  "on cpu")
+
+
+def phase_boundaries(dev, report):
+    """Both kernels against their plain versions, exact, where their
+    branches change: every instance and pass boundary, a 20-row slot beside
+    a 1,500-row one, targets of length 1 and of the panel's full padded
+    length, and a stack whose caps rule out the packed gapless instance."""
+    import numpy as np
+    import torch
+
+    from foldseek_tpu_torch.ops import gapless as tg
+    from foldseek_tpu_torch.ops import sw_kernels as tk
+    from foldseek_tpu_torch.ops.sw import QueryProfile
+    from foldseek_tpu_torch.search.ungapped import (BYTE_CAP,
+                                                    make_query_profile)
+    rng = np.random.default_rng(11)
+    n, lt = 3072, 128
+    lens = rng.integers(1, lt + 1, n)
+    lens[0], lens[1] = 1, lt
+    panel = np.full((2, n, lt), tg.PAD_LETTER, dtype=np.int8)
+    for i, L in enumerate(lens):
+        panel[:, i, :L] = rng.integers(0, 20, (2, L))
+    t_aa, t_ss = (torch.from_numpy(np.ascontiguousarray(x.T)).to(dev)
+                  for x in panel)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    res_aa, res_ss = (torch.from_numpy(np.concatenate(
+        [x[i, :L] for i, L in enumerate(lens)])).to(dev) for x in panel)
+    cases = []
+
+    def seq(L):
+        return rng.integers(0, 20, L).astype(np.int8)
+
+    def gapless(label, profs, caps, t_T):
+        args = [torch.from_numpy(a).to(dev)
+                for a in tg.pack_profiles_batch(profs, caps)] + [t_T]
+        q_lens = [p.shape[1] for p in profs]
+        packed = tg.can_pack(min(caps), max(caps),
+                             int(min(p.min() for p in profs)),
+                             int(max(p.max() for p in profs)),
+                             max(q_lens), t_T.shape[0])
+        plan = tg.plan_gapless_launch(q_lens, t_T.shape[1], t_T.shape[0],
+                                      packed)
+        cases.append(dict(
+            label=f"gapless {label} ({'packed' if packed else '32-bit'}, "
+                  f"strips {[tg.strip_rows(L, packed) for L in q_lens]}, "
+                  f"{plan['passes']} passes)",
+            max_abs_err=max_abs_err([tg.gapless_scores_batch(*args)],
+                                    [tg.gapless_scores_batch_torch(*args)])))
+
+    def prefilter_profiles(q_lens, uncapped=()):
+        profs, caps = [], []
+        for k, L in enumerate(q_lens):
+            p, b = make_query_profile(seq(L))
+            profs.append(p)
+            caps.append(tg.NO_CAP if k in uncapped else BYTE_CAP - b)
+        return profs, caps
+
+    for L in sorted({r + d for r in tg.PACKED_ROWS for d in (-1, 0, 1)}
+                    | {385}):
+        gapless(f"query of {L} rows, capped", *prefilter_profiles([L]), t_ss)
+    # no cap, short diagonals: still provably inside 16 bits
+    gapless("query of 150 rows, no cap",
+            *prefilter_profiles([150], uncapped=(0,)), t_ss)
+    gapless("stack of 150, 40, 20 and 200 rows, one cap missing",
+            *prefilter_profiles([150, 40, 20, 200], uncapped=(1,)), t_ss)
+    # no cap, entries up to 127, a 300-row query on 384-long targets: a
+    # diagonal can pass 16 bits, so the 32-bit kernel runs (32-row strips)
+    long_lens = rng.integers(1, 385, 512)
+    long_lens[0], long_lens[1] = 1, 384
+    long_panel = np.full((512, 384), tg.PAD_LETTER, dtype=np.int8)
+    for i, L in enumerate(long_lens):
+        long_panel[i, :L] = rng.integers(0, 20, L)
+    t_long = torch.from_numpy(np.ascontiguousarray(long_panel.T)).to(dev)
+    wide = sorted({r + d for r in tg.WIDE_ROWS for d in (-1, 0, 1)} | {300})
+    wide_profs = [rng.integers(-128, 128, (21, L)).astype(np.float32)
+                  for L in wide]
+    wide_profs[-1][:, ::2] = 127
+    gapless(f"stack of {wide} rows, no cap, entries up to 127", wide_profs,
+            [tg.NO_CAP] * len(wide), t_long)
+    for L in (95, 96, 97, 200):
+        prof = QueryProfile(seq(L), seq(L))
+        aa, q_off, _ = tg.pack_profiles_batch([prof.prof_aa], [0])
+        ss, _, _ = tg.pack_profiles_batch([prof.prof_ss], [0])
+        args = [torch.from_numpy(a).to(dev) for a in (aa, ss, q_off)] \
+            + [t_aa, t_ss]
+        cases.append(dict(
+            label=f"gapless_dual query of {L} rows",
+            max_abs_err=max_abs_err([tg.gapless_scores_dual(*args)],
+                                    [tg.gapless_scores_dual_torch(*args)])))
+
+    def sw(label, q_lens, pairs=200):
+        profs = [QueryProfile(seq(L), seq(L)) for L in q_lens]
+        slots = [p for q in profs for p in (q, q.reversed())]
+        paa, pss, slot_off = tk.pack_sw_slots([p.prof_aa for p in slots],
+                                              [p.prof_ss for p in slots])
+        tids = np.concatenate([np.concatenate([[0, 1], rng.choice(
+            n, pairs - 2, replace=False)]) for _ in slots])
+        args = (torch.from_numpy(paa).to(dev), torch.from_numpy(pss).to(dev),
+                slot_off, np.arange(len(slots) + 1) * pairs, res_aa, res_ss,
+                offs[tids], lens[tids])
+        slot_lens = np.diff(slot_off).tolist()
+        plan = tk.plan_sw_launch(slot_lens, [pairs] * len(slots), lt)
+        cases.append(dict(
+            label=f"sw {label} (lane groups "
+                  f"{sorted({tk.sw_lane_group(L) for L in slot_lens})}, "
+                  f"{plan['passes']} passes)",
+            max_abs_err=max_abs_err(tk.sw_scores_pairs(*args),
+                                    tk.sw_scores_pairs_torch(*args))))
+
+    edges = {tallest for tallest, _ in tk.SW_GROUPS} | {384, 576}
+    for L in sorted({e + d for e in edges for d in (-1, 0, 1)} | {1}):
+        sw(f"slots of {L} rows", [L])
+    sw("slots of 20 and 1,500 rows", [20, 1500])
+    torch.cuda.synchronize()
+    bad = [c["label"] for c in cases if c["max_abs_err"]]
+    log(f"boundaries: {len(cases)} shapes, {len(bad)} disagree"
+        + "".join(f"\n  {c['label']}: max_abs_err={c['max_abs_err']}"
+                  for c in cases))
+    report["boundaries"] = cases
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version at: {bad}")
 
 
 def main() -> int:
@@ -588,16 +911,29 @@ def main() -> int:
                   sw_mode3=[])
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:   # one compiler per source, together
+    with ThreadPoolExecutor(5) as pool:   # one compiler per source, together
         native = pool.submit(native_ready)
         built = {name: pool.submit(_build.load, name)
-                 for name in ("gapless", "sw")}
+                 for name in ("gapless", "sw", "gapless_v1", "sw_v1")}
+        report["ptxas"] = {}
         for name, fut in built.items():
             b = fut.result()
             log(f"built csrc/{name}.cu in {b.seconds:.1f} s -> {b.path}")
             report[f"build_{name}_seconds"] = b.seconds
             with open(os.path.join(args.out_dir, f"nvcc_{name}.log"), "w") as f:
                 f.write(b.log)
+            instances = report["ptxas"][name] = ptxas_instances(b.log)
+            for inst in instances:
+                log(f"  ptxas {inst['kernel']}: {inst['registers']} registers, "
+                    f"{inst['smem']} B shared, spills "
+                    f"{inst['spill_stores']}/{inst['spill_loads']} B")
+            if not b.log:
+                log(f"  csrc/{name}.cu was built before this run: no ptxas "
+                    "output")
+            elif not name.endswith("_v1") and (not instances or any(
+                    i["spill_stores"] or i["spill_loads"] for i in instances)):
+                raise AssertionError(f"csrc/{name}.cu: ptxas reports spills, "
+                                     "or no instance was found in its log")
         if not native.result():
             raise AssertionError("native host library did not build or load")
     report["build_seconds"] = time.perf_counter() - t0
@@ -620,6 +956,7 @@ def main() -> int:
         s3 = phase_mode3_kernel(card, dev, tdb, qdb,
                                 resident_panels(tdb, dev), report)
         phase_parity(dev, pdb, qdb, report)
+        phase_boundaries(dev, report)
     loaded = sorted(k for k in sys.modules if k in ("jax", "foldseek_tpu")
                     or k.startswith(("jax.", "foldseek_tpu.")))
     if loaded:

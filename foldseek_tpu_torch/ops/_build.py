@@ -3,12 +3,14 @@
 Each `csrc/<name>.cu` exposes a plain C entry point, so it compiles in
 seconds without PyTorch's headers. The shared library lands in
 `foldseek_tpu_torch/build/lib<name>-<hash>.so`, where the hash covers the
-source and the flags: an edited kernel is rebuilt, an unchanged one is
-loaded as it is. A failed build or load raises; nothing falls back.
+source, every header in `csrc/` and the flags: an edited kernel or header is
+rebuilt, an unchanged one is loaded as it is. A failed build or load raises;
+nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -49,11 +51,20 @@ def _nvcc() -> str:
                        f"{CSRC_DIR} need the CUDA toolkit to build")
 
 
+def library_path(name: str) -> str:
+    """Where `csrc/<name>.cu` builds to: the hash in the file name covers the
+    flags, the source and every header of `csrc/`."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, name + ".cu"), *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
 def _compile(name: str) -> Built:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    so = library_path(name)
     seconds, log = 0.0, ""
     if not os.path.isfile(so):
         os.makedirs(BUILD_DIR, exist_ok=True)

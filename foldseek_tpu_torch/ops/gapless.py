@@ -16,13 +16,26 @@ letter 21: neighbouring CUDA threads then read neighbouring bytes.
 Semantics (`_make_kernel_batch`): per query, per target,
 h = min(max(h_diag + prof[i, t_j], 0), cap), best = max(best, h) over every
 cell; the diagonal starts from 0 at the query's first row and the target's
-first column. The kernel keeps one value per diagonal, so a query of any
-length is the same launch: `gapless_scores_batch` covers K1, the
-slab-chained long-query kernel K2 (`_make_kernel_long`) and the one-query
-kernel K5 (`_make_kernel_single`: a stack of one, with `NO_CAP` where it had
-no cap) of the JAX package. `gapless_scores_dual` is the dual-alphabet scan
-K6 (`_make_kernel_dual`): s = prof_aa[i, t_aa_j] + prof_ss[i, t_ss_j] over
-two panels of equal shape, no cap.
+first column. A query of any length is the same launch:
+`gapless_scores_batch` covers K1, the slab-chained long-query kernel K2
+(`_make_kernel_long`) and the one-query kernel K5 (`_make_kernel_single`: a
+stack of one, with `NO_CAP` where it had no cap) of the JAX package.
+`gapless_scores_dual` is the dual-alphabet scan K6 (`_make_kernel_dual`):
+s = prof_aa[i, t_aa_j] + prof_ss[i, t_ss_j] over two panels of equal shape,
+no cap.
+
+On the card. One thread per target walks the target's columns with a strip
+of consecutive query rows in registers; the kernel keeps the query's profile
+in shared memory as int16, letter-major (one 128-bit load brings eight rows
+of a letter), so profile entries (lanes 0..20) must lie in int8 range; the
+wrapper checks and raises. `can_pack` decides from the caps, the profile
+range and the lengths whether the packed 16-bit kernel (two rows a register)
+is exact; otherwise the 32-bit kernel runs. The kernel gives each query the
+shortest strip that holds it (`strip_rows`); a query taller than the tallest
+strip runs in passes that hand one value per column through a scratch tensor
+of the wrapper. `plan_gapless_launch` shrinks the block when a launch has
+few (query, target tile) items, so that one query still spreads over the
+card. Pad columns beyond the longest real target of a warp are not walked.
 """
 from __future__ import annotations
 
@@ -39,8 +52,20 @@ NEG = -(1 << 24)
 # a cap no running score reaches (profile scores stay below 2**20): min(h,
 # NO_CAP) is the identity
 NO_CAP = 2**31 - 1
-# CUDA grid rows: queries per launch
-MAX_QUERIES_PER_LAUNCH = 65535
+# strip heights (query rows a pass holds in registers) the kernels are built
+# for: two rows a register when packed, one otherwise (csrc/gapless.cu Strips)
+PACKED_ROWS = (32, 64, 96, 128, 160, 192)
+WIDE_ROWS = (32,)
+PROFILE_MIN, PROFILE_MAX = -128, 127   # int8 range, checked per launch
+# largest running score of the packed kernel: with PROFILE_MAX added it still
+# fits int16
+PACKED_CAP_MAX = 32767 - 255
+MAX_THREADS, MIN_THREADS = 128, 32
+# (query, target tile) items below which a launch takes smaller blocks, and
+# the most blocks a launch starts (they walk over the items); a launch with
+# passes starts fewer, each block owning [Lt, threads] of scratch
+TARGET_ITEMS = 132 * 8
+MAX_BLOCKS, MAX_BLOCKS_PASSES = 132 * 8, 132 * 4
 
 
 def pack_profile(prof: np.ndarray) -> np.ndarray:
@@ -126,6 +151,46 @@ def gapless_scores_dual_torch(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
         prof_aa.shape[0], q_off, None, Lt, B, dev)
 
 
+# --- launch planning (pure Python) ------------------------------------------
+
+def can_pack(cap_min: int, cap_max: int, prof_min: int, prof_max: int,
+             max_len: int, lt: int) -> bool:
+    """True when the packed 16-bit kernel is exact: no cap is negative, every
+    profile entry lies in int8 range, and no running score can pass
+    PACKED_CAP_MAX, either because every cap stops it there or because a
+    diagonal of at most min(max_len, lt) cells of at most prof_max each cannot
+    reach it (which lets an uncapped query of moderate length pack too). Then
+    h stays in [0, PACKED_CAP_MAX] and h + s fits int16 at every cell."""
+    reach = min(cap_max, min(max_len, lt) * max(prof_max, 0))
+    return (0 <= cap_min and reach <= PACKED_CAP_MAX
+            and PROFILE_MIN <= prof_min and prof_max <= PROFILE_MAX)
+
+
+def strip_rows(length: int, packed: bool) -> int:
+    """Query rows a pass of the kernel holds for a query of `length` rows: the
+    shortest strip that holds it, or the tallest (and several passes)."""
+    options = PACKED_ROWS if packed else WIDE_ROWS
+    return next((rows for rows in options if length <= rows), options[-1])
+
+
+def plan_gapless_launch(query_lens, n_targets: int, lt: int,
+                        packed: bool) -> dict:
+    """Launch shape: passes of the tallest query, threads per block, blocks,
+    and the scratch elements the passes need (0 for one pass). The 32-bit instances halve the block while the launch has fewer
+    than TARGET_ITEMS items; the packed instance keeps 128 threads, which
+    share its eight copies of the profile tile (up to 63 KB a block)."""
+    tallest = max((int(L) for L in query_lens), default=0)
+    passes = -(-tallest // strip_rows(tallest, packed))
+    threads = MAX_THREADS
+    while not packed and threads > MIN_THREADS and \
+            len(query_lens) * -(-n_targets // threads) < TARGET_ITEMS:
+        threads //= 2
+    items = len(query_lens) * -(-n_targets // threads)
+    grid = max(1, min(items, MAX_BLOCKS_PASSES if passes > 1 else MAX_BLOCKS))
+    return dict(passes=passes, threads=threads, grid=grid,
+                scratch=grid * lt * threads if passes > 1 else 0)
+
+
 # --- CUDA wrappers ------------------------------------------------------------
 
 def _lib():
@@ -133,13 +198,11 @@ def _lib():
     lib = load("gapless").lib
     fn = lib.gapless_scores
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i, i, p, p, p, i, p, i, i, ll, p, p, p, p]
         fn.restype = ctypes.c_int
-        lib.gapless_scores_dual.argtypes = [
-            p, p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, p, p]
+        lib.gapless_scores_dual.argtypes = [i, i, p, p, p, i, p, p, i, i, ll,
+                                            ll, p, p, p, p]
         lib.gapless_scores_dual.restype = ctypes.c_int
     return lib
 
@@ -150,6 +213,27 @@ def _check(name, t, dtype, ndim, dev):
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name} must be {dtype} with {ndim} dims, got "
                          f"{t.dtype} {tuple(t.shape)}")
+
+
+def _stack_facts(q_off: torch.Tensor, *ranged):
+    """One trip to the host: the queries' lengths and the (min, max) of each
+    tensor in `ranged` (0, 0 for an empty one)."""
+    zero = q_off.new_zeros(2)
+    parts = [q_off] + [
+        torch.stack(t.aminmax()) if t.numel() else zero for t in ranged]
+    host = torch.cat(parts).tolist()
+    n = q_off.numel()
+    lens = [b - a for a, b in zip(host[:n - 1], host[1:n])]
+    return lens, [tuple(host[n + 2 * k: n + 2 * k + 2])
+                  for k in range(len(ranged))]
+
+
+def check_profile_range(name: str, lo: int, hi: int) -> None:
+    """Raise unless [lo, hi], the range of a profile's entries, fits the
+    int16 tiles the kernels keep in shared memory (int8 range)."""
+    if lo < PROFILE_MIN or hi > PROFILE_MAX:
+        raise ValueError(f"{name} entries must lie in [{PROFILE_MIN}, "
+                         f"{PROFILE_MAX}], got [{lo}, {hi}]")
 
 
 def gapless_scores_batch(prof: torch.Tensor, q_off: torch.Tensor,
@@ -169,18 +253,27 @@ def gapless_scores_batch(prof: torch.Tensor, q_off: torch.Tensor,
     q = q_off.numel() - 1
     if prof.shape[1] != PROF_LANES or caps.numel() != q or q < 0:
         raise ValueError("prof must be [rows, 32] with one cap per query")
-    if q > MAX_QUERIES_PER_LAUNCH:
-        raise ValueError(f"at most {MAX_QUERIES_PER_LAUNCH} queries a launch")
     if not (prof.is_contiguous() and q_off.is_contiguous()
             and caps.is_contiguous() and t_T.stride(1) == 1):
         raise ValueError("gapless kernel inputs must be contiguous")
     Lt, B = t_T.shape
     out = torch.empty((q, B), dtype=torch.int32, device=dev)
+    if q == 0 or B == 0:
+        return out
+    lens, ((cap_min, cap_max), (p_min, p_max)) = _stack_facts(
+        q_off, caps, prof[:, :PAD_LETTER])
+    check_profile_range("gapless profile", p_min, p_max)
+    packed = can_pack(cap_min, cap_max, p_min, p_max, max(lens), Lt)
+    plan = plan_gapless_launch(lens, B, Lt, packed)
+    t_len = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(1, plan["scratch"]), device=dev,
+                          dtype=torch.int16 if packed else torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().gapless_scores(
-            prof.data_ptr(), q_off.data_ptr(), caps.data_ptr(), q,
-            t_T.data_ptr(), Lt, B, t_T.stride(0), out.data_ptr(), stream)
+            int(packed), plan["grid"], plan["threads"], prof.data_ptr(), q_off.data_ptr(), caps.data_ptr(), q,
+            t_T.data_ptr(), Lt, B, t_T.stride(0), t_len.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gapless kernel launch failed: CUDA error {rc}")
     gapless_scores_batch.launches += 1
@@ -213,20 +306,29 @@ def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
             or t_ss_T.shape != t_aa_T.shape or q < 0:
         raise ValueError("profiles must be equal [rows, 32], panels equal "
                          "[Lt, B]")
-    if q > MAX_QUERIES_PER_LAUNCH:
-        raise ValueError(f"at most {MAX_QUERIES_PER_LAUNCH} queries a launch")
     if not (prof_aa.is_contiguous() and prof_ss.is_contiguous()
             and q_off.is_contiguous() and t_aa_T.stride(1) == 1
             and t_ss_T.stride(1) == 1):
         raise ValueError("gapless kernel inputs must be contiguous")
     Lt, B = t_aa_T.shape
     out = torch.empty((q, B), dtype=torch.int32, device=dev)
+    if q == 0 or B == 0:
+        return out
+    lens, (aa_range, ss_range) = _stack_facts(
+        q_off, prof_aa[:, :PAD_LETTER], prof_ss[:, :PAD_LETTER])
+    check_profile_range("dual gapless AA profile", *aa_range)
+    check_profile_range("dual gapless 3Di profile", *ss_range)
+    plan = plan_gapless_launch(lens, B, Lt, packed=False)
+    t_len = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(1, plan["scratch"]), dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().gapless_scores_dual(
-            prof_aa.data_ptr(), prof_ss.data_ptr(), q_off.data_ptr(), q,
-            t_aa_T.data_ptr(), t_ss_T.data_ptr(), Lt, B, t_aa_T.stride(0),
-            t_ss_T.stride(0), out.data_ptr(), stream)
+            plan["grid"], plan["threads"], prof_aa.data_ptr(),
+            prof_ss.data_ptr(), q_off.data_ptr(), q, t_aa_T.data_ptr(),
+            t_ss_T.data_ptr(), Lt, B, t_aa_T.stride(0), t_ss_T.stride(0),
+            t_len.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dual gapless kernel launch failed: CUDA error {rc}")
     gapless_scores_dual.launches += 1
@@ -236,16 +338,21 @@ def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
 gapless_scores_dual.launches = 0
 
 
-def gapless_topk_batch(prof: torch.Tensor, q_off: torch.Tensor,
-                       caps: torch.Tensor, t_T: torch.Tensor, k: int):
-    """Scores plus each query's top k panel rows (int32 [q, k] scores,
-    int64 [q, k] rows), ties to the lower row first — the order of
-    `jax.lax.top_k`. Score and row are packed into one unique int64 key, so
-    the selection does not depend on how `torch.topk` orders ties."""
-    scores = gapless_scores_batch(prof, q_off, caps, t_T)
+def topk_rows(scores: torch.Tensor, k: int):
+    """Each row's k best (int32 [q, k] scores, int64 [q, k] columns), ties
+    to the lower column first: the order of `jax.lax.top_k`. Score and
+    column are packed into one unique int64 key, so the selection does not
+    depend on how `torch.topk` orders ties."""
     B = scores.shape[1]
     low = (1 << 32) - 1
     rows = torch.arange(B, device=scores.device, dtype=torch.long)
     key = (scores.long() << 32) | (low - rows)
     top = torch.topk(key, k, dim=1, sorted=True).values
     return (top >> 32).to(torch.int32), low - (top & low)
+
+
+def gapless_topk_batch(prof: torch.Tensor, q_off: torch.Tensor,
+                       caps: torch.Tensor, t_T: torch.Tensor, k: int):
+    """Scores plus each query's top k panel rows (int32 [q, k] scores,
+    int64 [q, k] rows), ties to the lower row first (`topk_rows`)."""
+    return topk_rows(gapless_scores_batch(prof, q_off, caps, t_T), k)

@@ -12,8 +12,20 @@ arrays `res_aa` / `res_ss` (int8); a *pair* is (slot, target) with the
 target's residue offset and length. Pairs are grouped by slot:
 `pair_start` [S + 1] gives each slot's range. The TPU's stacked slots with
 pad rows, SEG_BIG staircase and padded target panels are not needed: one
-`sw_scores_pairs` launch covers both `sw_scores_batch_multi` (K3) and
-`sw_scores_query` (K4) of the JAX package, and queries of any length.
+`sw_scores_pairs` launch covers `sw_scores_batch_multi` (K3),
+`sw_scores_batch` (K7) and `sw_scores_query` (K4) of the JAX package, and
+queries of any length.
+
+On the card. The kernel keeps a tile of the slot's profile in shared memory
+as int16, letter-major (one 128-bit load brings eight rows of a letter), so
+profile entries must lie in int8 range; the wrapper checks and raises. A
+group of G lanes scores one pair, each lane holding S consecutive query rows
+in registers; the kernel gives every slot the lane group that fits its
+length (`sw_lane_group`), a slot taller than 256 rows runs in passes through
+a scratch row per group, and an all-zero AA profile takes the kernel that
+reads the 3Di profile only. The kernel finds its pairs from `pair_start`, so the plan
+that goes to the card is `pair_toff` / `pair_tlen` alone, and a caller that
+holds them on the card already uploads nothing.
 """
 from __future__ import annotations
 
@@ -22,11 +34,44 @@ import ctypes
 import numpy as np
 import torch
 
+from .gapless import check_profile_range
 from .sw import sw_scan_torch
 
 ALPHA = 21
-WARPS_PER_BLOCK = 4      # csrc/sw.cu kWarps
-MAX_ROWS_PER_LANE = 8    # csrc/sw.cu instantiates R = 1..8
+THREADS = 128            # csrc/sw.cu kThreads
+# (lanes per pair G, query rows per lane S) of the kernel's lane groups, by
+# the tallest slot each serves in one pass; a taller slot runs in passes of
+# the last one (csrc/sw.cu sw_kernel)
+SW_GROUPS = ((32, (4, 8)), (64, (8, 8)), (128, (8, 16)), (192, (8, 24)),
+             (256, (16, 16)))
+SW_GROUP_IN_PASSES = (8, 24)
+MAX_PAIRS_PER_BLOCK = 32   # csrc/sw.cu kMaxPairs: 128 threads of groups of 4
+# blocks a launch aims for: 132 SMs, 16 blocks of 128 threads each
+TARGET_BLOCKS = 132 * 16
+
+
+def sw_lane_group(slot_len: int):
+    """(G, S) of the lane group the kernel gives a slot of `slot_len` rows:
+    the group with the fewest padded rows that holds the slot in one pass
+    (of two alike, the one with fewer lanes: G - 1 steps of every target fill
+    and drain a group), or (8, 24) in passes for a slot taller than 256."""
+    return next((group for tallest, group in SW_GROUPS if slot_len <= tallest),
+                SW_GROUP_IN_PASSES)
+
+
+def plan_sw_launch(slot_lens, pair_counts, max_tlen: int) -> dict:
+    """Launch shape of `sw_scores_pairs`: the passes of the tallest slot, the
+    blocks per slot (each walks over chunks of 128 / G pairs of its slot) and
+    the scratch size in int32 (two values per column for every group a block
+    can hold, only when a slot needs more than one pass)."""
+    groups = [sw_lane_group(int(L)) for L in slot_lens]
+    passes = max(-(-int(L) // (G * S)) for L, (G, S) in zip(slot_lens, groups))
+    chunks = max(-(-int(c) // (THREADS // G))
+                 for c, (G, _) in zip(pair_counts, groups))
+    nbx = max(1, min(chunks, -(-TARGET_BLOCKS // len(slot_lens))))
+    scr_stride = 2 * int(max_tlen) if passes > 1 else 0
+    return dict(passes=passes, nbx=nbx, scr_stride=scr_stride,
+                scratch=len(slot_lens) * nbx * MAX_PAIRS_PER_BLOCK * scr_stride)
 
 
 def pack_sw_slots(profs_aa, profs_ss):
@@ -82,8 +127,8 @@ def _lib():
     fn = lib.sw_scores
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, p, p, p, ll, p, p, p, p, p, p, p, p, p, p,
-                       i, i, p, p, p]
+        fn.argtypes = [i, i, i, p, p, p, ll, p, p, p, p, p, p, p, ll, i, i,
+                       p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -95,11 +140,12 @@ def sw_scores_pairs(prof_aa: torch.Tensor, prof_ss: torch.Tensor, slot_off,
     """Affine SW (score, q_end, t_end) int32 [P] of every (slot, target) pair.
 
     prof_aa, prof_ss: int32 [21, rows] and res_aa, res_ss: int8 [N] lie on
-    the device that runs the scan. slot_off [S + 1], pair_start [S + 1],
-    pair_toff [P] and pair_tlen [P] are the plan; they may lie on either
-    device (the wrapper reads them on the host to build the block table).
-    Every slot must hold at least one row. Every launch of the SW kernel
-    goes through this function and adds one to `sw_scores_pairs.launches`."""
+    the device that runs the scan. slot_off [S + 1] and pair_start [S + 1]
+    are read on the host; pair_toff [P] and pair_tlen [P] may lie on either
+    device and are used where they are when they lie on the card. Every slot
+    must hold at least one row, and on the card every profile entry must lie
+    in int8 range. Every launch of the SW kernel goes through this function
+    and adds one to `sw_scores_pairs.launches`."""
     dev = res_aa.device
     if dev.type == "cpu":
         return sw_scores_pairs_torch(prof_aa, prof_ss, slot_off, pair_start,
@@ -118,60 +164,58 @@ def sw_scores_pairs(prof_aa: torch.Tensor, prof_ss: torch.Tensor, slot_off,
         raise ValueError("profiles must be [21, rows], residues equal 1-D")
     so = _host_long(slot_off)
     ps = _host_long(pair_start)
-    toff = _host_long(pair_toff)
-    tlen = _host_long(pair_tlen)
     S = so.numel() - 1
     lens = so.diff()
     counts = ps.diff()
     if S < 0 or ps.numel() != S + 1 or int(ps[0]) != 0 or (counts < 0).any():
         raise ValueError("slot_off and pair_start must be [S + 1] offsets")
     P = int(ps[-1])
-    if toff.numel() != P or tlen.numel() != P:
+    toff, tlen = torch.as_tensor(pair_toff), torch.as_tensor(pair_tlen)
+    if toff.shape != (P,) or tlen.shape != (P,):
         raise ValueError("pair_toff and pair_tlen must hold one entry a pair")
     if int(so[0]) != 0 or int(so[-1]) > prof_aa.shape[1] or \
             (S and int(lens.min()) < 1):
         raise ValueError("slot_off must cover non-empty slots of the profiles")
-    if P and (int(toff.min()) < 0 or int(tlen.min()) < 0
-              or int((toff + tlen).max()) > res_aa.numel()):
-        raise ValueError("pairs reach outside the residue arrays")
     score = torch.empty(P, dtype=torch.int32, device=dev)
     qend = torch.empty(P, dtype=torch.int32, device=dev)
     tend = torch.empty(P, dtype=torch.int32, device=dev)
     if P == 0:
         return score, qend, tend
-    R = min(MAX_ROWS_PER_LANE, max(1, -(-int(lens.max()) // 32)))
-    tile_rows = 32 * R
-    # block table: each block scores up to WARPS_PER_BLOCK pairs of one slot
-    nblk_slot = -(-counts // WARPS_PER_BLOCK)
-    blk_slot = torch.repeat_interleave(torch.arange(S), nblk_slot)
-    first_blk = torch.cumsum(nblk_slot, 0) - nblk_slot
-    blk_p0 = ps[blk_slot] + WARPS_PER_BLOCK * (
-        torch.arange(blk_slot.numel()) - first_blk[blk_slot])
-    blk_p1 = ps[blk_slot + 1]
-    # per-column scratch for pairs whose slot spans several tiles
-    pair_slot = torch.repeat_interleave(torch.arange(S), counts)
-    multi = (lens > tile_rows)[pair_slot]
-    scr_len = torch.where(multi, 4 * tlen, 0)
-    pair_scr = torch.cumsum(scr_len, 0) - scr_len
-    scratch = torch.empty(max(1, int(scr_len.sum())), dtype=torch.int32,
+    # what the checks and the plan need to know: the pairs' share is
+    # computed where the pairs lie, and the card's share comes home in one
+    # trip
+    tlen = tlen.to(toff.device)
+    pair_facts = torch.stack([toff.min(), (toff.long() + tlen).max(),
+                              tlen.min(), tlen.max()]).long()
+    used = slice(0, int(so[-1]))
+    facts = [torch.stack([*prof_aa[:, used].aminmax(),
+                          *prof_ss[:, used].aminmax()]).long()]
+    if pair_facts.device == dev:
+        facts.append(pair_facts)
+    host = torch.cat(facts).tolist()
+    aa_min, aa_max, ss_min, ss_max = host[:4]
+    toff_min, reach, tlen_min, max_tlen = host[4:] or pair_facts.tolist()
+    if toff_min < 0 or tlen_min < 0 or reach > res_aa.numel():
+        raise ValueError("pairs reach outside the residue arrays")
+    check_profile_range("SW AA profile", aa_min, aa_max)
+    check_profile_range("SW 3Di profile", ss_min, ss_max)
+    toff = toff.to(dev, torch.long).contiguous()
+    tlen = tlen.to(dev, torch.int32).contiguous()
+    plan = plan_sw_launch(lens.tolist(), counts.tolist(), max_tlen)
+    scratch = torch.empty(max(1, plan["scratch"]), dtype=torch.int32,
                           device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    i64 = dict(dtype=torch.long, device=dev)
-    plan = dict(slot_off=so.to(**i32), blk_slot=blk_slot.to(**i32),
-                blk_p0=blk_p0.to(**i32), blk_p1=blk_p1.to(**i32),
-                toff=toff.to(**i64), tlen=tlen.to(**i32),
-                scr=pair_scr.to(**i64))
+    slot_off_dev = so.to(dev, torch.int32)
+    pair_start_dev = ps.to(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().sw_scores(
-            R, blk_slot.numel(), stream, prof_aa.data_ptr(),
-            prof_ss.data_ptr(), prof_aa.shape[1], plan["slot_off"].data_ptr(),
-            plan["blk_slot"].data_ptr(), plan["blk_p0"].data_ptr(),
-            plan["blk_p1"].data_ptr(), res_aa.data_ptr(), res_ss.data_ptr(),
-            plan["toff"].data_ptr(), plan["tlen"].data_ptr(),
-            plan["scr"].data_ptr(), scratch.data_ptr(), int(gap_open),
-            int(gap_extend), score.data_ptr(), qend.data_ptr(),
-            tend.data_ptr())
+            int(aa_min != 0 or aa_max != 0), S, plan["nbx"], stream,
+            prof_aa.data_ptr(), prof_ss.data_ptr(),
+            prof_aa.shape[1], slot_off_dev.data_ptr(),
+            pair_start_dev.data_ptr(), res_aa.data_ptr(), res_ss.data_ptr(),
+            toff.data_ptr(), tlen.data_ptr(), scratch.data_ptr(),
+            plan["scr_stride"], int(gap_open), int(gap_extend),
+            score.data_ptr(), qend.data_ptr(), tend.data_ptr())
     if rc != 0:
         raise RuntimeError(f"SW kernel launch failed: CUDA error {rc}")
     sw_scores_pairs.launches += 1

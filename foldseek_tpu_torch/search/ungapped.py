@@ -215,8 +215,9 @@ def ungapped_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
 # backtrace exists (Matcher::estimateSeqIdByScorePerCol)
 SEQID_SLOPE, SEQID_OFFSET = 0.1656, 0.1141
 # device bytes one (query, target) pair of mode 3 takes in `sw_scores_pairs`:
-# its plan entries (int64 offset, int32 length, int64 scratch offset) and its
-# three int32 results, plus the survivor mask and index
+# its plan entries (int64 offset, int32 length, their int64 sum in the
+# wrapper's range check) and its three int32 results, plus the survivor mask
+# and index
 MODE3_BYTES_PER_PAIR = 8 + 4 + 8 + 3 * 4 + 1 + 8
 
 
@@ -238,8 +239,10 @@ def sw_scores_all_targets(profs_ss, panels: TorchPanelSet, gap_open: int,
     dev = panels.device
     n = panels.n_entries
     res_aa, res_ss = panels.residues()
-    toff = torch.tensor(panels.offsets[:-1])
-    tlen = torch.from_numpy(np.diff(panels.offsets))
+    # the pairs are regular (every query against every target): their plan
+    # is built on the device that runs the scan
+    toff = torch.tensor(panels.offsets[:-1]).to(dev)
+    tlen = torch.from_numpy(np.diff(panels.offsets)).to(dev)
     budget = panel_budget(dev)
     per_launch = len(profs_ss) if budget is None else max(
         1, budget // max(1, MODE3_BYTES_PER_PAIR * n))

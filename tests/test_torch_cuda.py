@@ -249,3 +249,111 @@ def test_search_on_card_matches_cpu(cuda, tmp_path, mode):
         lines[dev.type] = format_results(qdb, tdb, res, params.format_output,
                                          with_backtrace=mode == 1)
     assert len(lines["cpu"]) > 1000 and lines["cuda"] == lines["cpu"]
+
+
+# --- the shapes where the kernels' branches change -----------------------------
+
+def _boundary_panel(rng, dev, n=600, lt=128):
+    """A panel whose first target has length 1 and whose second fills the
+    padded length; the rest are 1..lt long."""
+    lens = rng.randint(1, lt + 1, n)
+    lens[0], lens[1] = 1, lt
+    seqs = [rng.randint(0, 20, L).astype(np.int8) for L in lens]
+    return seqs, torch.from_numpy(
+        ad.prepare_targets_T(seqs, lens, lt_pad=lt)).to(dev)
+
+
+@pytest.mark.parametrize("lens,uncapped", [
+    ([31], ()), ([32], ()), ([33], ()), ([96], ()), ([97], ()), ([160], ()),
+    ([161], ()), ([192], ()), ([193], ()), ([385], ()), ([97], (0,)),
+    ([150, 40], ()), ([150, 40, 20, 200, 100, 70], (1,))])
+def test_gapless_boundaries_on_card(cuda, lens, uncapped):
+    """Query lengths just below, at and above the strip heights of the packed
+    kernel, one and several passes, stacks of unequal queries (each takes
+    its own strip) and missing caps that the short diagonals make up for;
+    targets of length 1 and of the panel's full padded length."""
+    rng = np.random.RandomState(sum(lens) + len(uncapped))
+    profs, caps = [], []
+    for k, L in enumerate(lens):
+        p, b = make_query_profile(rng.randint(0, 20, L))
+        profs.append(p)
+        caps.append(tg.NO_CAP if k in uncapped else BYTE_CAP - b)
+    _, t_T = _boundary_panel(rng, cuda)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in tg.pack_profiles_batch(profs, caps)] + [t_T]
+    hi = int(max(p.max() for p in profs))
+    assert tg.can_pack(min(caps), max(caps), -128, hi, max(lens), 128)
+    got = tg.gapless_scores_batch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tg.gapless_scores_batch_torch(*args))
+    assert int(got[:, :2].min()) >= 0 and int(got.max()) > 0
+
+
+@pytest.mark.parametrize("lens", [[300], [300, 31, 32, 33, 64, 65, 96, 97]])
+def test_gapless_32bit_kernel_on_card(cuda, lens):
+    """No cap, profile entries up to 127 and a 300-row query against targets
+    up to 384 long: a diagonal can pass 16 bits, so the 32-bit kernel runs,
+    queries of 31 to 33 rows in one pass and the taller ones in several."""
+    rng = np.random.RandomState(len(lens))
+    profs = [rng.randint(-128, 128, (21, L)).astype(np.float32) for L in lens]
+    profs[0][:, ::2] = 127               # a query that scores on every target
+    assert not tg.can_pack(tg.NO_CAP, tg.NO_CAP, -128, 127, max(lens), 384)
+    _, t_T = _boundary_panel(rng, cuda, n=300, lt=384)
+    args = [torch.from_numpy(a).to(cuda) for a in tg.pack_profiles_batch(
+        profs, [tg.NO_CAP] * len(lens))] + [t_T]
+    got = tg.gapless_scores_batch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tg.gapless_scores_batch_torch(*args))
+    assert int(got.max()) > 127 * 100
+
+
+@pytest.mark.parametrize("lens", [[1], [32], [33], [64], [65], [128], [129],
+                                  [192], [193], [256], [257], [385],
+                                  [20, 1500]])
+def test_sw_boundaries_on_card(cuda, lens):
+    """Slot lengths around every (G, S) instance and pass boundary, and a
+    20-row slot beside a 1,500-row one; targets of length 1 included."""
+    rng = np.random.RandomState(sum(lens))
+    args = list(_sw_inputs(rng, lens, 300, 100, cuda))
+    args[7] = args[7].copy()
+    args[7][:3] = 1                      # three pairs whose target is one long
+    got = tk.sw_scores_pairs(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, tk.sw_scores_pairs_torch(*args)):
+        assert torch.equal(g, w)
+
+
+def test_sw_plan_on_the_card_matches_plan_on_the_host(cuda):
+    """pair_toff / pair_tlen as device tensors (the mode-3 call) give what
+    host arrays give, and an all-zero AA profile (the 3Di-only instance)
+    equals the plain version."""
+    rng = np.random.RandomState(14)
+    args = list(_sw_inputs(rng, [150, 60], 300, 120, cuda))
+    args[0] = torch.zeros_like(args[0])
+    want = tk.sw_scores_pairs_torch(*args)
+    on_host = tk.sw_scores_pairs(*args)
+    args[6] = torch.from_numpy(args[6]).to(cuda)
+    args[7] = torch.from_numpy(args[7]).to(cuda)
+    on_card = tk.sw_scores_pairs(*args)
+    for a, b, w in zip(on_host, on_card, want):
+        assert torch.equal(a, w) and torch.equal(b, w)
+
+
+def test_wrappers_reject_profiles_outside_int8_on_card(cuda):
+    rng = np.random.RandomState(15)
+    prof, q_off, caps, t_T = _gapless_inputs(rng, [30], 10, cuda)
+    prof = prof.clone()
+    prof[3, 5] = 128
+    with pytest.raises(ValueError):
+        tg.gapless_scores_batch(prof, q_off, caps, t_T)
+    args = list(_sw_inputs(rng, [40], 50, 10, cuda))
+    args[1] = args[1].clone()
+    args[1][2, 7] = -129
+    with pytest.raises(ValueError):
+        tk.sw_scores_pairs(*args)
+    with pytest.raises(ValueError):      # a pair reaching past the residues
+        bad = list(args)
+        bad[1] = torch.zeros_like(args[1])
+        bad[6] = bad[6].copy()
+        bad[6][0] = args[4].numel()
+        tk.sw_scores_pairs(*bad)

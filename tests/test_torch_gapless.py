@@ -225,3 +225,155 @@ def test_gapless_dual_stack_matches_single_queries():
                                      torch.from_numpy(tg.pack_profile(pss)),
                                      t_aa, t_ss)
         assert torch.equal(got[k], one)
+
+
+# --- the kernel's column walk, modelled in numpy --------------------------------
+
+def _s16(x):
+    """Wrap to int16 as the packed halves of a register do."""
+    return ((np.asarray(x, dtype=np.int64) + 32768) % 65536) - 32768
+
+
+def gapless_strip_model(prof, cap, t_col, rows, packed):
+    """csrc/gapless.cu for one (query, target): a strip of `rows` query rows
+    held per pass, updated bottom-up so row k takes the old value of row
+    k - 1; packed strips keep (row k, row k + W) in the two int16 halves of a
+    register (arithmetic wrapped to int16 here: the precondition must keep
+    it from wrapping); passes hand the last row's value per column through
+    a scratch row; a pad letter resets the strip; columns beyond the last
+    real letter are not walked. prof is [Lq, 32] as `pack_profile` gives."""
+    Lq, lt = prof.shape[0], len(t_col)
+    letters = np.asarray(t_col).astype(np.int64) & 31
+    real = np.nonzero(letters < 21)[0]
+    wmax = int(real[-1]) + 1 if len(real) else 0
+    W = rows // 2 if packed else rows
+    zero = 0 if packed else min(0, cap)
+    scr = np.zeros(lt, dtype=np.int64)
+    best = 0
+
+    def cell(diag, s):
+        if packed:      # __viaddmin_s16x2_relu, one int16 half
+            return np.maximum(np.minimum(_s16(diag + s), cap), 0)
+        return np.minimum(np.maximum(diag + s, 0), cap)
+
+    for p in range(-(-Lq // rows)):
+        base = p * rows
+        tile = np.zeros((rows, 21), dtype=np.int64)
+        n = min(rows, Lq - base)
+        tile[:n] = prof[base:base + n, :21]
+        h = np.zeros((rows // W, W), dtype=np.int64)   # [half, register]
+        prev = 0
+        for j in range(wmax):
+            cin = prev
+            if p > 0:
+                prev = scr[j]
+            if letters[j] >= 21:
+                h[:] = zero
+            else:
+                s = tile[:, letters[j]].reshape(h.shape)
+                # register 0: the low half takes the pass before, the high
+                # half the old low half of the last register
+                first = np.array([cin, h[0, W - 1]])[:h.shape[0]]
+                diag = np.concatenate([first[:, None], h[:, :-1]], axis=1)
+                h = cell(diag, s)
+            best = max(best, int(h.max()))
+            scr[j] = h[-1, W - 1]
+    return best
+
+
+@pytest.mark.parametrize("rows,packed", [(32, True), (64, True), (192, True),
+                                         (32, False)])
+@pytest.mark.parametrize("Lq", [20, 32, 33, 150, 193, 400])
+def test_strip_model_matches_plain(Lq, rows, packed):
+    """One strip, exact strips and passes, capped (packed or not) and
+    uncapped (32-bit only): the model of the kernel equals the plain
+    version on targets of length 1, of the full padded length, with a pad
+    letter in the middle and all pad."""
+    rng = np.random.RandomState(Lq + rows)
+    prof, b = make_query_profile(rng.randint(0, 20, Lq))
+    cap = BYTE_CAP - b if packed else tg.NO_CAP
+    lt = 48
+    seqs = [rng.randint(0, 20, L).astype(np.int8) for L in (1, lt, 30, 17, 40)]
+    tt = ad.prepare_targets_T(seqs, [len(s) for s in seqs], lt_pad=lt, b_pad=8)
+    tt[9, 4] = 21            # a pad letter inside a target
+    stack = [torch.from_numpy(a)
+             for a in tg.pack_profiles_batch([prof], [cap])]
+    want = tg.gapless_scores_batch_torch(*stack, torch.from_numpy(tt))[0]
+    packed_prof = tg.pack_profile(prof).astype(np.int64)
+    for col in range(tt.shape[1]):
+        assert gapless_strip_model(packed_prof, int(cap), tt[:, col], rows,
+                                   packed) == int(want[col])
+    assert int(want.max()) > 0 and int(want[5:].max()) == 0
+
+
+def test_strip_model_at_the_packed_limits():
+    """The largest cap and the widest profile entries `can_pack` admits keep
+    every sum inside int16: the wrapped model still equals the plain one."""
+    rng = np.random.RandomState(77)
+    prof = np.where(rng.rand(21, 300) < 0.05, tg.PROFILE_MIN,
+                    tg.PROFILE_MAX).astype(np.float32)
+    cap = tg.PACKED_CAP_MAX
+    assert tg.can_pack(cap, cap, tg.PROFILE_MIN, tg.PROFILE_MAX, 300, 300)
+    seq = rng.randint(0, 20, 300).astype(np.int8)
+    tt = ad.prepare_targets_T([seq], [300], lt_pad=300, b_pad=1)
+    stack = [torch.from_numpy(a) for a in tg.pack_profiles_batch([prof], [cap])]
+    want = int(tg.gapless_scores_batch_torch(*stack, torch.from_numpy(tt))[0, 0])
+    assert want == cap       # the running score climbs until the cap binds
+    assert gapless_strip_model(tg.pack_profile(prof).astype(np.int64), cap,
+                               tt[:, 0], 64, True) == want
+
+
+# --- launch planning -------------------------------------------------------------
+
+@pytest.mark.parametrize("facts,packed", [
+    ((0, 255, -20, 30, 169, 256), True),             # the prefilter's stack
+    ((0, tg.PACKED_CAP_MAX, -128, 127, 10**6, 10**6), True),   # the limits
+    ((0, tg.PACKED_CAP_MAX + 1, -20, 127, 10**6, 10**6), False),
+    # no cap: packed as long as the diagonals are too short to pass 16 bits
+    ((0, tg.NO_CAP, -20, 30, 169, 256), True),
+    ((0, tg.NO_CAP, -20, 127, 256, 300), True),      # 256 * 127 = 32512
+    ((0, tg.NO_CAP, -20, 127, 257, 300), False),
+    ((0, tg.NO_CAP, -20, 127, 5000, 256), True),     # the target is the short side
+    ((0, tg.NO_CAP, -5, 0, 10**6, 10**6), True),     # nothing ever scores
+    ((-1, 200, -20, 30, 100, 100), False),           # a negative cap
+    ((0, 255, -129, 30, 100, 100), False), ((0, 255, -20, 128, 100, 100), False)])
+def test_can_pack_only_under_the_proven_precondition(facts, packed):
+    assert tg.can_pack(*facts) is packed
+
+
+@pytest.mark.parametrize("length,packed,rows", [
+    (0, True, 32), (20, True, 32), (33, True, 64), (96, True, 96),
+    (141, True, 160), (169, True, 192), (192, True, 192), (4613, True, 192),
+    (32, False, 32), (33, False, 32), (300, False, 32)])
+def test_strip_height_follows_query_length(length, packed, rows):
+    assert tg.strip_rows(length, packed) == rows
+    assert rows in (tg.PACKED_ROWS if packed else tg.WIDE_ROWS)
+
+
+def test_plan_passes_scratch_and_block_size():
+    many = tg.plan_gapless_launch([150] * 16, 65280, 128, packed=True)
+    assert many["threads"] == 128 and many["passes"] == 1
+    assert many["scratch"] == 0 and many["grid"] == tg.MAX_BLOCKS
+    one = tg.plan_gapless_launch([30], 34816, 256, packed=False)
+    assert one["threads"] == 32                 # few items: smaller blocks
+    assert one["grid"] == min(-(-34816 // 32), tg.MAX_BLOCKS)
+    # the packed kernel shares its tile copies among 128 threads
+    one = tg.plan_gapless_launch([150], 34816, 256, packed=True)
+    assert one["threads"] == 128 and one["grid"] == 34816 // 128
+    tall = tg.plan_gapless_launch([4613, 20], 65280, 128, packed=True)
+    assert tall["passes"] == -(-4613 // 192)
+    assert tall["grid"] <= tg.MAX_BLOCKS_PASSES
+    assert tall["scratch"] == tall["grid"] * 128 * tall["threads"]
+    assert tg.plan_gapless_launch([97], 500, 64, packed=False)["passes"] == 4
+    tiny = tg.plan_gapless_launch([10], 5, 64, packed=False)
+    assert tiny["grid"] == 1 and tiny["threads"] == 32
+
+
+def test_topk_rows_is_the_selection_of_gapless_topk_batch():
+    rng = np.random.RandomState(31)
+    scores = torch.from_numpy(rng.randint(0, 5, (3, 200)).astype(np.int32))
+    s, r = tg.topk_rows(scores, 17)
+    for q in range(3):
+        order = np.lexsort((np.arange(200), -scores[q].numpy()))[:17]
+        assert np.array_equal(r[q].numpy(), order)
+        assert np.array_equal(s[q].numpy(), scores[q].numpy()[order])

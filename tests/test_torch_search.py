@@ -469,6 +469,31 @@ def test_chip_smoke_imports_only_the_port():
                      *sys.stdlib_module_names}, roots
 
 
+def test_only_chip_smoke_reaches_the_v1_kernels():
+    """The kernels of the version before (csrc/*_v1.cu) are kept for timing:
+    no module of the port names them; chip_smoke.py does."""
+    for path in _port_sources():
+        with open(path) as f:
+            names_v1 = "_v1" in f.read()
+        assert names_v1 == path.endswith("chip_smoke.py"), path
+    csrc = os.path.join(REPO, "foldseek_tpu_torch", "csrc")
+    assert {"gapless.cu", "sw.cu", "gapless_v1.cu", "sw_v1.cu",
+            "dp_common.cuh"} <= set(os.listdir(csrc))
+
+
+def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edited header in csrc/ changes the name of the library a kernel
+    builds into, so a stale library is never loaded."""
+    from foldseek_tpu_torch.ops import _build
+    shutil.copytree(_build.CSRC_DIR, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path / "csrc"))
+    before = _build.library_path("sw")
+    with open(tmp_path / "csrc" / "dp_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path("sw") != before
+    assert _build.library_path("sw").startswith(_build.BUILD_DIR)
+
+
 def test_get_device():
     assert get_device("cpu") == CPU
     if torch.cuda.is_available():

@@ -224,3 +224,183 @@ def test_batch_matches_jax():
                 t_aa[b, :t_len[b]], t_ss[b, :t_len[b]])
             assert (int(got[0][k, b]), int(got[2][k, b])) == (s, te)
             assert s == 0 or int(got[1][k, b]) == qe
+
+
+# --- the kernel's recurrence, modelled in numpy -------------------------------
+
+NEG_INF = -(1 << 30)
+PAD_SCORE = -4096
+
+
+def sw_wavefront_model(prof_aa, prof_ss, t_aa, t_ss, go, ge, G, S):
+    """csrc/sw.cu step by step for one pair: a group of G lanes, lane l
+    owning S consecutive query rows and working on column t - l at step t;
+    F carried down the rows of a lane in a register and handed to the next
+    lane with the last row's H; slots taller than G * S rows in passes
+    through a scratch row; per-lane best on strict improvement, merged over
+    passes and reduced over lanes by (score max, column min, row min)."""
+    Lq, tlen, T = prof_aa.shape[1], len(t_aa), G * S
+    npass = -(-Lq // T)
+    scr = np.zeros((max(tlen, 1), 2), dtype=np.int64)
+    best = [(0, 0, Lq - 1)] * G                      # (score, column, row)
+    for p in range(npass):
+        base = p * T
+        n = min(T, Lq - base)
+        tile_aa = np.full((21, T), PAD_SCORE, dtype=np.int64)
+        tile_ss = tile_aa.copy()
+        tile_aa[:, :n] = prof_aa[:, base:base + n]
+        tile_ss[:, :n] = prof_ss[:, base:base + n]
+        H = np.zeros((G, S), dtype=np.int64)
+        E = np.full((G, S), NEG_INF, dtype=np.int64)
+        pbest = [(0, 0, 0)] * G
+        diag0 = [0] * G
+        hout, fout = [0] * G, [NEG_INF] * G
+        new_scr = scr.copy()
+        for t in range(tlen + G - 1):
+            sent_h, sent_f = list(hout), list(fout)  # what shfl_up delivers
+            for l in range(G):
+                j = t - l
+                if not 0 <= j < tlen:
+                    continue
+                if l == 0:
+                    hin, fin = (scr[j] if p > 0 else (0, NEG_INF))
+                else:
+                    hin, fin = sent_h[l - 1], sent_f[l - 1]
+                ca, cs = min(int(t_aa[j]), 20), min(int(t_ss[j]), 20)
+                diag, F, m = diag0[l], fin, 0
+                for k in range(S):
+                    s = tile_aa[ca, l * S + k] + tile_ss[cs, l * S + k]
+                    hn = max(diag + s, E[l, k], 0)
+                    diag = H[l, k]
+                    hgo = hn - go
+                    E[l, k] = max(E[l, k] - ge, hgo)
+                    h = max(hn, F)
+                    F = max(F - ge, hgo)
+                    H[l, k] = h
+                    m = max(m, h)
+                hout[l], fout[l] = H[l, S - 1], F
+                diag0[l] = hin
+                if l == G - 1:
+                    new_scr[j] = (hout[l], fout[l])
+                if m > pbest[l][0]:
+                    k = int(np.argmax(H[l] == m))
+                    pbest[l] = (m, j, base + l * S + k)
+        scr = new_scr
+        for l in range(G):
+            if pbest[l][0] > best[l][0] or (
+                    pbest[l][0] == best[l][0] and pbest[l][0] > 0
+                    and pbest[l][1] < best[l][1]):
+                best[l] = pbest[l]
+    score, col, row = min(best, key=lambda b: (-b[0], b[1], b[2]))
+    return score, row, col
+
+
+def _model_case(kind, rng):
+    """(prof_aa, prof_ss, t_aa, t_ss, go, ge) int64 profiles of one pair."""
+    go, ge = 10, 1
+    if kind == "random":
+        q, t = _seq(rng, 70), _seq(rng, 45)
+    elif kind == "tie_rows":      # the motif twice in the query: two rows tie
+        m, n = _seq(rng, 12), _seq(rng, 17)
+        q, t = tuple(np.concatenate([a, b, a]) for a, b in zip(m, n)), m
+    elif kind == "tie_columns":   # the motif twice in the target
+        m, n = _seq(rng, 12), _seq(rng, 9)
+        q, t = m, tuple(np.concatenate([a, b, a]) for a, b in zip(m, n))
+    elif kind == "tie_across_passes":   # copies 40 rows apart: other pass
+        m, n = _seq(rng, 10), _seq(rng, 30)
+        q, t = tuple(np.concatenate([a, b, a]) for a, b in zip(m, n)), m
+    elif kind == "open_equals_extend":
+        q, t, go, ge = _seq(rng, 50), _seq(rng, 40), 2, 2
+    elif kind == "free_gaps":
+        q, t, go, ge = _seq(rng, 40), _seq(rng, 30), 0, 0
+    elif kind == "one_row":
+        q, t = _seq(rng, 1), _seq(rng, 20)
+    elif kind == "one_column":
+        q, t = _seq(rng, 37), _seq(rng, 1)
+    else:
+        raise ValueError(kind)
+    prof = tsw.QueryProfile(*q, comp_bias_correction=False)
+    return (prof.prof_aa.astype(np.int64), prof.prof_ss.astype(np.int64),
+            t[0], t[1], go, ge)
+
+
+@pytest.mark.parametrize("G,S", [(4, 8), (8, 8), (8, 16), (16, 16)])
+@pytest.mark.parametrize("kind", ["random", "tie_rows", "tie_columns",
+                                  "tie_across_passes", "open_equals_extend",
+                                  "free_gaps", "one_row", "one_column"])
+def test_wavefront_model_matches_scalar_oracle(kind, G, S):
+    """The recurrence and the tie rule of csrc/sw.cu (rows in order inside a
+    lane, F in a register, per-lane best, one three-key reduction) give the
+    score and end positions of `sw_score_endpos_np`, q_end included."""
+    rng = np.random.RandomState(len(kind) * 100 + G + S)
+    paa, pss, t_aa, t_ss, go, ge = _model_case(kind, rng)
+    want = jsw.sw_score_endpos_np(paa, pss, t_aa, t_ss, go, ge)
+    got = sw_wavefront_model(paa, pss, t_aa, t_ss, go, ge, G, S)
+    assert got == tuple(int(x) for x in want)
+    assert want[0] > 0
+
+
+@pytest.mark.parametrize("G,S", [(4, 8), (8, 24)])
+def test_wavefront_model_score_zero_pair(G, S):
+    """No positive cell: score 0, q_end = slot length - 1, t_end = 0."""
+    paa = np.full((21, 45), -3, dtype=np.int64)
+    t = np.arange(30) % 20
+    want = jsw.sw_score_endpos_np(paa, paa, t, t)
+    assert tuple(want) == (0, 44, 0)
+    assert sw_wavefront_model(paa, paa, t, t, 10, 1, G, S) == (0, 44, 0)
+
+
+# --- launch planning -------------------------------------------------------------
+
+@pytest.mark.parametrize("length,group", [
+    (1, (4, 8)), (32, (4, 8)), (33, (8, 8)), (64, (8, 8)), (65, (8, 16)),
+    (128, (8, 16)), (129, (8, 24)), (169, (8, 24)), (192, (8, 24)),
+    (193, (16, 16)), (256, (16, 16)), (257, (8, 24)), (1500, (8, 24))])
+def test_lane_group_follows_slot_length(length, group):
+    G, S = tk.sw_lane_group(length)
+    assert (G, S) == group
+    assert length <= G * S or (length > 256 and group == tk.SW_GROUP_IN_PASSES)
+    # no group that holds the slot in one pass has fewer padded rows
+    assert all(G * S <= g * s_ for t, (g, s_) in tk.SW_GROUPS if length <= t)
+
+
+@pytest.mark.parametrize("length,passes", [(192, 1), (256, 1), (385, 3),
+                                           (2500, 14)])
+def test_plan_passes_and_scratch(length, passes):
+    """Slots of unequal length share a launch: each has its own lane group,
+    the passes are those of the tallest, the scratch covers every group a
+    block can hold."""
+    plan = tk.plan_sw_launch([length, 20], [1000, 10], max_tlen=300)
+    assert plan["passes"] == passes
+    if passes == 1:
+        assert plan["scratch"] == 0 and plan["scr_stride"] == 0
+    else:   # two values per column of the longest target, for every group
+        assert plan["scr_stride"] == 600
+        assert plan["scratch"] == (2 * plan["nbx"] * tk.MAX_PAIRS_PER_BLOCK
+                                   * 600)
+    G, _ = tk.sw_lane_group(length)
+    assert plan["nbx"] == min(-(-1000 // (tk.THREADS // G)),
+                              tk.TARGET_BLOCKS // 2)
+
+
+def test_plan_counts_chunks_by_each_slots_group():
+    """A 20-row slot packs 32 pairs into a block iteration, a 150-row slot
+    16: the blocks per slot follow the slot with the most chunks."""
+    assert tk.plan_sw_launch([20, 150], [640, 160], 100)["nbx"] == 20
+    assert tk.plan_sw_launch([20, 150], [640, 640], 100)["nbx"] == 40
+
+
+def test_plan_bounds_the_grid():
+    plan = tk.plan_sw_launch([150] * 16, [100_000] * 16, max_tlen=169)
+    assert 16 * plan["nbx"] <= tk.TARGET_BLOCKS + 16
+
+
+@pytest.mark.parametrize("lo,hi,ok", [(-128, 127, True), (0, 0, True),
+                                      (-129, 5, False), (-5, 128, False)])
+def test_profile_range_check(lo, hi, ok):
+    from foldseek_tpu_torch.ops.gapless import check_profile_range
+    if ok:
+        check_profile_range("profile", lo, hi)
+    else:
+        with pytest.raises(ValueError):
+            check_profile_range("profile", lo, hi)
