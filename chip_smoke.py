@@ -22,7 +22,26 @@ Phases (any failure exits nonzero and prints no result line):
      profile against 1000 shared targets (sw_scores_batch).
   5. end to end, mode 1: `search` + `format_results` with prefilter_mode=1
      and backtraces on the card, cold then warm, over a synthetic DB; the
-     gapless and the SW kernel must have launched in the cold run.
+     gapless and the SW kernel must have launched in the cold run. Once with
+     the TM/LDDT gates as the card runs them by default and once with
+     FOLDSEEK_TPU_DEVICE_GATES forcing the other side (1: device fleets, 0:
+     the host's batch_gates), then twenty warm runs in turns (ten pairs,
+     alternating which side runs first); the two sides' records are compared hit by hit (equal hit sets and backtraces; TM and
+     LDDT within 2e-3, the structure-bit score within 1).
+  5b. the gate fleet alone, on that run's own accepted hits: the device
+     fleet against the fleet on the CPU (float32 both), host batch_gates
+     beside the device fleet at 1,000, 4,000 and 16,000 hits in turns (host,
+     device, device, host), the fleet with a convergence test every fourth
+     iteration beside the fleet that runs all 20, the profiler's device time,
+     the bytes moved and the peak memory.
+  5c. PSSM call shapes: profiles from `result2profile` on the mode-1 hits;
+     the gapless kernel through `UngappedPrefilter.query_profile` and the SW
+     kernel through a `PSSMQueryProfile` pair list (forward and reversed
+     slots), each exact against its plain version, timed.
+  5d. end to end, the other paths, each once: --num-iterations 2 with
+     prefilter mode 1, the default k-mer prefilter (mode 0), --alignment-type
+     1 and 3, all at the full --targets depth (the json holds each run's
+     target count).
   6. end to end, mode 3: the same with prefilter_mode=3 (3Di-only SW of
      every query against the whole DB); the SW kernel must have launched and
      the gapless kernel must not. Then the SW kernel vs its plain version at
@@ -30,7 +49,9 @@ Phases (any failure exits nonzero and prints no result line):
      and the full-size call's wrapper time (CUDA events, host plan included)
      beside its kernel time (torch.profiler).
   7. parity: on a 2000-target DB the m8 lines on cuda equal those on cpu,
-     for mode 1 and mode 3.
+     byte for byte, for mode 1 with host gates, mode 3, mode 0, two
+     iterations and alignment types 1 and 3; mode 1 with the device gates on
+     the card against the host gates on the cpu inside the band of phase 5.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
@@ -87,6 +108,14 @@ GAPLESS_DUAL_OPS = 2.5
 SW_OPS_PER_CELL = 6.5
 SW_OPS_NO_AA = 5.5
 MODE3_CHUNK = 20_000           # targets per plain-version comparison
+GATE_TOL = 2e-3                # |dTM|, |dLDDT| of float32 fleets vs the host
+GATE_FLEET_SIZES = (1_000, 4_000, 16_000)
+FP32_PER_S = 67e12             # H100 SXM data sheet, outside the tensor cores
+# float operations of the gate fleet, for its bound: one (slot, column) cell
+# of a TM iteration (rotate, distance, score, the three minima, the cut and
+# its 17 masked sums) and one pair of columns of the LDDT
+TM_OPS_PER_CELL = 60
+LDDT_OPS_PER_PAIR = 30
 NO_LIBRARY = None              # no single PyTorch call computes these DPs
 
 
@@ -613,12 +642,35 @@ def phase_call_shapes(card, dev, tdb, qdb, pieces, panels, report):
     return total(dual[1:]), launches
 
 
-def run_search(qdb, tdb, dev, mode: int):
+def run_search(qdb, tdb, dev, mode: int, iterations: int = 1, **kw):
+    """(results, m8 lines) of one search through the port's entry points."""
     from foldseek_tpu_torch.search import SearchParams, format_results, search
-    params = SearchParams(prefilter_mode=mode, add_backtrace=mode != 3)
-    res = search(qdb, tdb, params, dev, same_db=False)
+    from foldseek_tpu_torch.search.pipeline import iterative_search
+    params = SearchParams(prefilter_mode=mode, add_backtrace=mode != 3, **kw)
+    if iterations > 1:
+        res = iterative_search(qdb, tdb, params, iterations, dev,
+                               same_db=False)
+    else:
+        res = search(qdb, tdb, params, dev, same_db=False)
     return res, format_results(qdb, tdb, res, params.format_output,
                                with_backtrace=params.add_backtrace)
+
+
+class gates_env:
+    """FOLDSEEK_TPU_DEVICE_GATES set to `value` ("" = unset) inside a with."""
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.pop("FOLDSEEK_TPU_DEVICE_GATES", None)
+        if self.value:
+            os.environ["FOLDSEEK_TPU_DEVICE_GATES"] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop("FOLDSEEK_TPU_DEVICE_GATES", None)
+        if self.old is not None:
+            os.environ["FOLDSEEK_TPU_DEVICE_GATES"] = self.old
 
 
 def check_lines(lines, qdb):
@@ -639,57 +691,406 @@ def check_lines(lines, qdb):
         raise AssertionError(f"{qdb.size - len(seen)} queries without hits")
 
 
-def phase_e2e(dev, tdb, qdb, mode, report):
-    """`search` + `format_results` cold (nothing of the DB on the card) then
-    warm; returns the launches of the cold run."""
+STAGES = ("prefilter", "ungapped+gapped_prefilter", "sw_scoring", "host_loop",
+          "gates_drain", "batch_recover", "tmalign", "lolalign")
+
+
+def counted_search(qdb, tdb, dev, mode, **kw):
+    """One search with every launch count set to 0 just before and read just
+    after: (results, lines, record of seconds, stages, launches, memory)."""
     import torch
 
-    from foldseek_tpu_torch.db.panels import release_resident_panels
     from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
                                                 gapless_scores_dual)
+    from foldseek_tpu_torch.ops.gates_device import GateFleet
     from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
     from foldseek_tpu_torch.search import (reset_stage_times,
                                            snapshot_stage_times)
+    reset_stage_times()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gapless_scores_batch.launches = 0
+    gapless_scores_dual.launches = 0
+    sw_scores_pairs.launches = 0
+    GateFleet.dispatches = 0
+    t0 = time.perf_counter()
+    res, lines = run_search(qdb, tdb, dev, mode, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stages = snapshot_stage_times()
+    rec = dict(
+        seconds=seconds, hits=len(lines), targets=tdb.size,
+        launches=dict(gapless=gapless_scores_batch.launches,
+                      gapless_dual=gapless_scores_dual.launches,
+                      sw=sw_scores_pairs.launches),
+        gate_fleets=GateFleet.dispatches,
+        stages={k: stages[k] for k in STAGES if k in stages},
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    check_lines(lines, qdb)
+    return res, lines, rec
 
+
+def phase_e2e(dev, tdb, qdb, mode, report, name=None, gates=""):
+    """`search` + `format_results` cold (nothing of the DB on the card) then
+    warm; returns (the launches of the cold run, the warm run's results).
+    `gates` is the value of FOLDSEEK_TPU_DEVICE_GATES for the two runs."""
+    from foldseek_tpu_torch.db.panels import release_resident_panels
+
+    name = name or f"e2e_mode{mode}"
     release_resident_panels()
     out = {}
-    for run_name in ("cold", "warm"):
-        reset_stage_times()
-        torch.cuda.reset_peak_memory_stats(dev)
-        gapless_scores_batch.launches = 0
-        gapless_scores_dual.launches = 0
-        sw_scores_pairs.launches = 0
-        t0 = time.perf_counter()
-        _res, lines = run_search(qdb, tdb, dev, mode)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(gapless=gapless_scores_batch.launches,
-                        gapless_dual=gapless_scores_dual.launches,
-                        sw=sw_scores_pairs.launches)
-        stages = snapshot_stage_times()
-        out[run_name] = dict(
-            seconds=seconds, hits=len(lines), launches=launches,
-            stages={k: stages.get(k) for k in (
-                "prefilter", "ungapped+gapped_prefilter", "sw_scoring",
-                "host_loop", "batch_recover") if k in stages},
-            max_memory_allocated=torch.cuda.max_memory_allocated(dev))
-        log(f"e2e mode {mode} {run_name}: {tdb.size} targets x {qdb.size} "
-            f"queries {seconds:.3f} s, {len(lines)} hits, stages "
-            f"{out[run_name]['stages']}, max_memory_allocated "
-            f"{out[run_name]['max_memory_allocated']} B, launches {launches}")
-        check_lines(lines, qdb)
-        if run_name == "cold":
-            cold_lines = lines
-            main_launches = launches
-        elif lines != cold_lines:
-            raise AssertionError("warm run output differs from the cold run")
+    with gates_env(gates):
+        for run_name in ("cold", "warm"):
+            res, lines, rec = counted_search(qdb, tdb, dev, mode)
+            out[run_name] = rec
+            log(f"{name} {run_name}: {tdb.size} targets x {qdb.size} queries "
+                f"{rec['seconds']:.3f} s, {len(lines)} hits, stages "
+                f"{rec['stages']}, max_memory_allocated "
+                f"{rec['max_memory_allocated']} B, launches {rec['launches']}, "
+                f"gate fleets {rec['gate_fleets']}")
+            if run_name == "cold":
+                cold_lines, cold_res = lines, res
+                main_launches = rec["launches"]
+            elif lines != cold_lines:
+                if not out["warm"]["gate_fleets"]:
+                    raise AssertionError("warm run output differs from the "
+                                         "cold run")
+                # float32 fleets: a sum taken in another order may move a
+                # structure-bit score by one; the records stay in the band
+                compare_gates(cold_res, res, f"{name}: warm vs cold")
     wanted = ("gapless", "sw") if mode == 1 else ("sw",)
     if not all(main_launches[k] for k in wanted) or (
             mode == 3 and main_launches["gapless"]):
         raise AssertionError(f"mode {mode}: wrong kernels launched: "
                              f"{main_launches}")
-    report[f"e2e_mode{mode}"] = out
-    return main_launches
+    if mode == 1 and gates and \
+            bool(out["warm"]["gate_fleets"]) != (gates == "1"):
+        raise AssertionError(f"{name}: gate fleets dispatched "
+                             f"{out['warm']['gate_fleets']} with "
+                             f"FOLDSEEK_TPU_DEVICE_GATES={gates!r}")
+    report[name] = out
+    return main_launches, res
+
+
+def phase_gate_turns(dev, tdb, qdb, report):
+    """Warm mode-1 searches with the host's gates and with the device fleets
+    in turns on the same card, ten pairs alternating which side runs first:
+    the end-to-end side of the crossover."""
+    import statistics
+    turns = []
+    for gates in ("0", "1", "1", "0") * 5:
+        with gates_env(gates):
+            _res, _lines, rec = counted_search(qdb, tdb, dev, 1)
+        turns.append(dict(gates="device" if gates == "1" else "host",
+                          seconds=rec["seconds"], stages=rec["stages"]))
+    pairs = [{t["gates"]: t["seconds"] for t in turns[i:i + 2]}
+             for i in range(0, len(turns), 2)]
+    summary = dict(
+        pairs=len(pairs),
+        device_ahead=sum(p["device"] < p["host"] for p in pairs),
+        host_median=statistics.median(p["host"] for p in pairs),
+        device_median=statistics.median(p["device"] for p in pairs))
+    log("e2e mode 1 warm, gates in turns: " + "; ".join(
+        f"{t['gates']} {t['seconds']:.3f} s (host_loop "
+        f"{t['stages'].get('host_loop')}, gates_drain "
+        f"{t['stages'].get('gates_drain', 0)})" for t in turns))
+    log(f"e2e mode 1 warm, gates in turns: {summary}")
+    report["e2e_mode1_gate_turns"] = dict(turns=turns, **summary)
+
+
+def compare_gates(host_res, dev_res, what: str) -> dict:
+    """Records with float32 device gates against records with the host's
+    float64 gates: equal hit sets, backtraces and integer columns; TM and
+    LDDT within GATE_TOL; the structure-bit score within 1."""
+    import numpy as np
+    d_tm, d_lddt, d_score = [], [], []
+    if set(host_res) != set(dev_res):
+        raise AssertionError(f"{what}: different query sets")
+    for qk, hs in host_res.items():
+        h_by = {r.db_key: r for r in hs}
+        d_by = {r.db_key: r for r in dev_res[qk]}
+        if set(h_by) != set(d_by):
+            raise AssertionError(f"{what}: query {qk}: different hit sets")
+        for tk, h in h_by.items():
+            d = d_by[tk]
+            if (h.backtrace, h.q_start, h.q_end, h.t_start, h.t_end,
+                    h.identical, h.evalue) != (
+                    d.backtrace, d.q_start, d.q_end, d.t_start, d.t_end,
+                    d.identical, d.evalue):
+                raise AssertionError(f"{what}: hit {qk}/{tk} differs beyond "
+                                     "the gates")
+            d_tm.append(abs(h.tm - d.tm))
+            d_lddt.append(abs(h.lddt - d.lddt))
+            d_score.append(abs(h.score - d.score))
+    d_tm, d_lddt, d_score = (np.asarray(x) for x in (d_tm, d_lddt, d_score))
+    rec = dict(hits=len(d_tm), tm_max=float(d_tm.max()),
+               tm_mean=float(d_tm.mean()), lddt_max=float(d_lddt.max()),
+               lddt_mean=float(d_lddt.mean()),
+               scores_off_by_one=int((d_score == 1).sum()),
+               score_max=int(d_score.max()))
+    log(f"{what}: {rec}")
+    if rec["tm_max"] > GATE_TOL or rec["lddt_max"] > GATE_TOL \
+            or rec["score_max"] > 1:
+        raise AssertionError(f"{what}: outside the band {GATE_TOL} / "
+                             f"{GATE_TOL} / 1")
+    return rec
+
+
+def profiled_device_ms(fn, top: int = 12):
+    """(device milliseconds of everything fn() puts on the card, kernels and
+    copies; the `top` largest entries as [name, ms, calls]) from
+    torch.profiler; (None, []) when it saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    # the operator rows only: the profiler lists each kernel a second time
+    # under its own name, and a sum over both would count it twice
+    rows = [(ev.key[:80],
+             float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))) / 1e3,
+             int(ev.count)) for ev in p.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CPU]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    total_ms = sum(r[1] for r in rows)
+    return (total_ms, [list(r) for r in rows[:top]]) if rows else (None, [])
+
+
+def phase_gates(dev, tdb, qdb, results, report):
+    """The TM/LDDT gate fleet alone, on the accepted hits of the mode-1 run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from foldseek_tpu_torch.ops import lddt as lddt_ops
+    from foldseek_tpu_torch.ops.tm_device import (REFINE_ITERS,
+                                                  fragment_slots)
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search import align
+    from foldseek_tpu_torch.utils.hostpar import map_queries
+
+    params = SearchParams(prefilter_mode=1, add_backtrace=True)
+    qk2i, tk2i = qdb.key_to_index(), tdb.key_to_index()
+    cpu = torch.device("cpu")
+    ctx = {int(k): lddt_ops.lddt_query_context(qdb.get_ca(qk2i[int(k)]))
+           for k in results}
+
+    def subset(n_hits):
+        per = -(-n_hits // len(results))
+        return {qk: [copy.copy(r) for r in rs if r.backtrace][:per]
+                for qk, rs in results.items()}
+
+    def host(sub):
+        def one(item):
+            qk, rs = item
+            qi = qk2i[int(qk)]
+            align._host_gates_batch(rs, tdb, tk2i, params, qdb.entry_len(qi),
+                                    qdb.get_ca(qi), ctx[int(qk)], True, True)
+        t0 = time.perf_counter()
+        map_queries(one, sub.items())
+        return (time.perf_counter() - t0) * 1e3
+
+    fleets_seen = []
+
+    def device(sub, on=dev, check_every=-1):
+        t0 = time.perf_counter()
+        fleets = align._device_gates_dispatch(qdb, tdb, sub, params, qk2i,
+                                              tk2i, True, True, on,
+                                              check_every)
+        dispatched = (time.perf_counter() - t0) * 1e3
+        align._device_gates_finish(fleets, params, True, True)
+        fleets_seen[:] = fleets
+        return (time.perf_counter() - t0) * 1e3, dispatched
+
+    def values(sub):
+        return (np.array([r.tm for rs in sub.values() for r in rs]),
+                np.array([r.lddt for rs in sub.values() for r in rs]))
+
+    out = dict(sizes=[])
+    # the card's fleet against the host's gates and against the CPU's fleet
+    small, small_cpu, small_host = (subset(GATE_FLEET_SIZES[0])
+                                    for _ in range(3))
+    device(small)
+    device(small_cpu, cpu)
+    host(small_host)
+    (tm_d, ld_d), (tm_c, ld_c), (tm_h, ld_h) = (
+        values(x) for x in (small, small_cpu, small_host))
+    out["cuda_vs_cpu_fleet"] = dict(
+        hits=len(tm_d), tm_max=float(np.abs(tm_d - tm_c).max()),
+        lddt_max=float(np.abs(ld_d - ld_c).max()),
+        tm_over_1e5=int((np.abs(tm_d - tm_c) > 1e-5).sum()),
+        lddt_over_1e5=int((np.abs(ld_d - ld_c) > 1e-5).sum()))
+    out["cuda_fleet_vs_host"] = dict(
+        tm_max=float(np.abs(tm_d - tm_h).max()),
+        tm_mean=float(np.abs(tm_d - tm_h).mean()),
+        lddt_max=float(np.abs(ld_d - ld_h).max()),
+        lddt_mean=float(np.abs(ld_d - ld_h).mean()))
+    log(f"gates: fleet on cuda vs fleet on cpu {out['cuda_vs_cpu_fleet']}; "
+        f"fleet on cuda vs host batch_gates {out['cuda_fleet_vs_host']}")
+    for rec in (out["cuda_vs_cpu_fleet"], out["cuda_fleet_vs_host"]):
+        if rec["tm_max"] > GATE_TOL or rec["lddt_max"] > GATE_TOL:
+            raise AssertionError(f"gate fleet outside the band: {rec}")
+
+    for n in GATE_FLEET_SIZES:
+        subs = [subset(n) for _ in range(4)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        h0 = host(subs[0])
+        d1, disp1 = device(subs[1])
+        peak = torch.cuda.max_memory_allocated(dev)
+        d2, disp2 = device(subs[2])
+        h3 = host(subs[3])
+        hits = sum(len(v) for v in subs[1].values())
+        # bytes and operations of this run's fleets, for the bound
+        h2d = d2h = cells = pairs = 0
+        for items, fleet in fleets_seen:
+            h2d += (fleet.qabs.nbytes + fleet.tabs.nbytes + fleet.m_len.nbytes
+                    + fleet.norm.nbytes + 16 * fleet.n)
+            d2h += 12 * fleet.n
+            slots = 2 * len(fragment_slots(fleet.m_pad)[0])
+            cells += int(fleet.m_len.sum()) * slots * (REFINE_ITERS + 1)
+            pairs += int((fleet.m_len.astype(np.int64) ** 2).sum())
+        gathered = 2 * 12 * sum(int(f.m_len.sum()) for _, f in fleets_seen)
+        byte_ms = (h2d + d2h + gathered) / HBM_BYTES_PER_S * 1e3
+        op_ms = (cells * TM_OPS_PER_CELL
+                 + pairs * LDDT_OPS_PER_PAIR) / FP32_PER_S * 1e3
+        rec = dict(hits=hits, host_ms=(h0 + h3) / 2, device_ms=(d1 + d2) / 2,
+                   device_dispatch_ms=(disp1 + disp2) / 2,
+                   host_turns=[h0, h3], device_turns=[d1, d2],
+                   fleets=len(fleets_seen),
+                   m_pads=sorted({f.m_pad for _, f in fleets_seen}),
+                   h2d_bytes=h2d, d2h_bytes=d2h, gathered_bytes=gathered,
+                   bound_ms=max(byte_ms, op_ms),
+                   bound_by="operations" if op_ms >= byte_ms else "bytes",
+                   max_memory_allocated=peak)
+        log(f"gates {hits} hits: host batch_gates {rec['host_ms']:.1f} ms "
+            f"{rec['host_turns']}, device fleet {rec['device_ms']:.1f} ms "
+            f"{rec['device_turns']} (dispatch returns after "
+            f"{rec['device_dispatch_ms']:.1f} ms), {rec['fleets']} fleets "
+            f"m_pad {rec['m_pads']}, up {h2d} B down {d2h} B, bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), peak memory "
+            f"{peak} B")
+        out["sizes"].append(rec)
+
+    # the largest fleet: device work by the profiler, and running all 20
+    # iterations beside the convergence test every fourth (the default on a
+    # card)
+    big = GATE_FLEET_SIZES[-1]
+    out["profiler_device_ms"], out["profiler_top"] = profiled_device_ms(
+        lambda: device(subset(big)))
+    log("gates: largest device entries of the fleet by the profiler "
+        "(name, ms, calls):" + "".join(f"\n  {r}" for r in out["profiler_top"]))
+    a, b, c = subset(big), subset(big), subset(big)
+    every4 = [device(a)[0], device(b)[0]]
+    run_all = [device(c, check_every=0)[0],
+               device(subset(big), check_every=0)[0]]
+    if not all(np.array_equal(x, y) for x, y in zip(values(b), values(c))):
+        raise AssertionError("gates: stopping at convergence changed a value")
+    out["run_all_20_ms"], out["check_every_4_ms"] = run_all, every4
+    log(f"gates {big} hits: device work by the profiler "
+        f"{out['profiler_device_ms']} ms; all 20 iterations {run_all} ms, "
+        f"convergence asked every 4th {every4} ms (equal values)")
+    report["gates"] = out
+    return out
+
+
+def phase_pssm(card, dev, tdb, qdb, results, panels, report):
+    """K1 and K3 at the inputs the profile path gives them: PSSM profiles
+    (no composition bias, stored bytes / 4, an X row of zeros) built by
+    `result2profile` from the mode-1 hits."""
+    import numpy as np
+    import torch
+
+    from foldseek_tpu_torch.ops import gapless as tg
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search import ungapped as tung
+    from foldseek_tpu_torch.search.profile import (profile_query,
+                                                   result2profile)
+    t0 = time.perf_counter()
+    keep = {qk: rs[:100] for qk, rs in results.items()}
+    profiles = result2profile(qdb, tdb, keep)
+    qprofs = {k: profile_query(p) for k, p in profiles.items()}
+    log(f"pssm: result2profile of {len(profiles)} queries x 100 hits in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = dict(gapless=[], sw=[])
+
+    # K1 through query_profile: the stack is caught on its way to the kernel
+    pref = tung.resident_prefilter(tdb, dev)
+    caught = []
+    real = tung.gapless_scores_batch, tung.gapless_topk_batch
+
+    def catching(fn):
+        def call(prof, q_off, caps, t_T, *k):
+            caught.append((prof, q_off, caps, t_T))
+            return fn(prof, q_off, caps, t_T, *k)
+        return call
+    first = next(iter(qprofs.values()))
+    # the prefilter reaches the wrapper by either name (scores, or top-k)
+    tung.gapless_scores_batch, tung.gapless_topk_batch = (
+        catching(fn) for fn in real)
+    try:
+        hits = pref.query_profile(first.prof_ss, SearchParams())
+    finally:
+        tung.gapless_scores_batch, tung.gapless_topk_batch = real
+    if not hits or len(caught) != len(pref.panels.buckets):
+        raise AssertionError("query_profile did not reach the gapless kernel "
+                             "once a bucket")
+    tlens = np.diff(pref.panels.offsets)
+    for args, bucket in zip(caught, pref.panels.buckets):
+        lo, hi = (int(x) for x in args[0][:, :tg.PAD_LETTER].aminmax())
+        packed = tg.can_pack(int(args[2].min()), int(args[2].max()), lo, hi,
+                             args[0].shape[0], args[3].shape[0])
+        rec = gapless_case(
+            card, f"PSSM query ({args[0].shape[0]} rows, entries [{lo}, {hi}], "
+                  f"{'packed' if packed else '32-bit'}) x bucket "
+                  f"lt={bucket.lt_pad} ({args[3].shape[1]} rows)",
+            args, int(tlens[bucket.entry_idx].sum()), out["gapless"])
+        if rec["max_abs_err"]:
+            raise AssertionError("gapless kernel disagrees with its plain "
+                                 "version on a PSSM profile")
+
+    # K3 through PSSM slots: forward and reversed profile of every query
+    # against 1000 candidates, as PairScorer packs them
+    rng = np.random.default_rng(13)
+    slots_aa, slots_ss, tids = [], [], []
+    for qp in qprofs.values():
+        rp = qp.reversed()
+        ti = rng.choice(tdb.size, min(1000, tdb.size), replace=False)
+        slots_aa += [qp.prof_aa, rp.prof_aa]
+        slots_ss += [qp.prof_ss, rp.prof_ss]
+        tids += [ti, ti]
+    rec = sw_case(card, f"{len(qprofs)} PSSM queries x fwd/rev x 1000",
+                  sw_args(slots_aa, slots_ss, tids, panels, dev), out["sw"])
+    if rec["max_abs_err"]:
+        raise AssertionError("SW kernel disagrees with its plain version on "
+                             "PSSM profiles")
+    torch.cuda.synchronize()
+    report["pssm"] = out
+    return total(out["gapless"]), total(out["sw"])
+
+
+def phase_e2e_paths(dev, tdb, qdb, report):
+    """The paths this slice added, each driven once through the entry
+    points with the counts set to 0 just before: name -> launches."""
+    paths = {"iter2_mode1": dict(mode=1, iterations=2),
+             "mode0": dict(mode=0),
+             "tmalign": dict(mode=1, alignment_type=1),
+             "lolalign": dict(mode=1, alignment_type=3)}
+    launches = {}
+    for name, kw in paths.items():
+        _res, _lines, rec = counted_search(qdb, tdb, dev, **kw)
+        log(f"e2e {name}: {tdb.size} targets x {qdb.size} queries "
+            f"{rec['seconds']:.3f} s, {rec['hits']} hits, stages "
+            f"{rec['stages']}, launches {rec['launches']}, gate fleets "
+            f"{rec['gate_fleets']}")
+        uses_sw = name in ("iter2_mode1", "mode0")
+        if (kw["mode"] == 1 and not rec["launches"]["gapless"]) or \
+                bool(rec["launches"]["sw"]) != uses_sw:
+            raise AssertionError(f"e2e {name}: wrong kernels launched: "
+                                 f"{rec['launches']}")
+        report[f"e2e_{name}"] = rec
+        launches[name] = rec["launches"]
+    return launches
 
 
 def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
@@ -743,19 +1144,35 @@ def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
 
 def phase_parity(dev, pdb, qdb, report):
     import torch
-    for mode in (1, 3):
-        _, on_gpu = run_search(qdb, pdb, dev, mode)
-        t0 = time.perf_counter()
-        _, on_cpu = run_search(qdb, pdb, torch.device("cpu"), mode)
-        cpu_s = time.perf_counter() - t0
-        same = on_gpu == on_cpu
-        log(f"parity mode {mode}, {pdb.size} targets x {qdb.size} queries: "
-            f"{len(on_gpu)} m8 lines on cuda, {len(on_cpu)} on cpu "
-            f"({cpu_s:.1f} s), byte-identical: {same}")
-        report[f"parity_mode{mode}"] = dict(lines=len(on_gpu), identical=same)
-        if not same or not on_gpu:
-            raise AssertionError(f"mode {mode}: m8 on cuda differs from m8 "
-                                 "on cpu")
+    cpu = torch.device("cpu")
+    exact = {"mode1": dict(mode=1), "mode3": dict(mode=3),
+             "mode0": dict(mode=0),
+             "iter2_mode1": dict(mode=1, iterations=2),
+             "tmalign": dict(mode=1, alignment_type=1),
+             "lolalign": dict(mode=1, alignment_type=3)}
+    with gates_env("0"):
+        for name, kw in exact.items():
+            t0 = time.perf_counter()
+            _, on_gpu = run_search(qdb, pdb, dev, **kw)
+            t1 = time.perf_counter()
+            res_cpu, on_cpu = run_search(qdb, pdb, cpu, **kw)
+            t2 = time.perf_counter()
+            same = on_gpu == on_cpu
+            log(f"parity {name}, {pdb.size} targets x {qdb.size} queries: "
+                f"{len(on_gpu)} m8 lines on cuda ({t1 - t0:.1f} s), "
+                f"{len(on_cpu)} on cpu ({t2 - t1:.1f} s), byte-identical: "
+                f"{same}")
+            report[f"parity_{name}"] = dict(lines=len(on_gpu), identical=same)
+            if not same or not on_gpu:
+                raise AssertionError(f"{name}: m8 on cuda differs from m8 on "
+                                     "cpu")
+            if name == "mode1":
+                host_cpu = res_cpu
+    with gates_env("1"):
+        res_gpu, _ = run_search(qdb, pdb, dev, mode=1)
+    report["parity_mode1_device_gates"] = compare_gates(
+        host_cpu, res_gpu, f"parity mode 1, {pdb.size} targets: device gates "
+                           "on cuda vs host gates on cpu")
 
 
 def phase_boundaries(dev, report):
@@ -951,8 +1368,28 @@ def main() -> int:
         d, shape_launches = phase_call_shapes(card, dev, tdb, qdb, pieces,
                                               panels, report)
         del pieces
-        mode1 = phase_e2e(dev, tdb, qdb, 1, report)
-        mode3 = phase_e2e(dev, tdb, qdb, 3, report)
+        # mode 1 as the card runs it by default, then with the gates forced
+        # to the other side
+        mode1, res_a = phase_e2e(dev, tdb, qdb, 1, report)
+        fleets_by_default = report["e2e_mode1"]["warm"]["gate_fleets"] > 0
+        _, res_b = phase_e2e(
+            dev, tdb, qdb, 1, report,
+            name="e2e_mode1_" + ("host" if fleets_by_default else "device")
+                 + "_gates", gates="0" if fleets_by_default else "1")
+        res_dev, res_host = (res_a, res_b) if fleets_by_default \
+            else (res_b, res_a)
+        del res_a, res_b
+        phase_gate_turns(dev, tdb, qdb, report)
+        report["e2e_mode1_gates_vs_host"] = compare_gates(
+            res_host, res_dev, f"e2e mode 1, {tdb.size} targets: device "
+                               "gates vs host gates")
+        phase_gates(dev, tdb, qdb, res_host, report)
+        del res_dev
+        pssm_g, pssm_s = phase_pssm(card, dev, tdb, qdb, res_host,
+                                    resident_panels(tdb, dev), report)
+        del res_host
+        paths = phase_e2e_paths(dev, tdb, qdb, report)
+        mode3, _ = phase_e2e(dev, tdb, qdb, 3, report)
         s3 = phase_mode3_kernel(card, dev, tdb, qdb,
                                 resident_panels(tdb, dev), report)
         phase_parity(dev, pdb, qdb, report)
@@ -964,7 +1401,8 @@ def main() -> int:
 
     def launches(name):
         by_path = dict(mode1=mode1[name], mode3=mode3[name],
-                       call_shapes=shape_launches[name])
+                       call_shapes=shape_launches[name],
+                       **{p: counts[name] for p, counts in paths.items()})
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
     pallas = "foldseek_tpu/ops/gapless_pallas.py"
@@ -973,7 +1411,7 @@ def main() -> int:
              source="foldseek_tpu_torch/csrc/gapless.cu",
              replaces=f"{pallas}:200",
              also_replaces=[f"{pallas}:277", f"{pallas}:389"],
-             **launches("gapless"), **g),
+             **launches("gapless"), **g, pssm=pssm_g),
         dict(name="gapless_dual", route="cuda",
              source="foldseek_tpu_torch/csrc/gapless.cu",
              replaces=f"{pallas}:412", **launches("gapless_dual"), **d),
@@ -981,11 +1419,12 @@ def main() -> int:
              replaces="foldseek_tpu/ops/sw_pallas.py:336",
              also_replaces=["foldseek_tpu/ops/sw_pallas.py:125",
                             "foldseek_tpu/ops/sw_pallas.py:271"],
-             **launches("sw"), **s, mode3=s3),
+             **launches("sw"), **s, mode3=s3, pssm=pssm_s),
     ]
     report["kernels"] = kernels
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(json.dumps({"gates": report["gates"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

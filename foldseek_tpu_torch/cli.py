@@ -31,7 +31,7 @@ def _add_search_params(p: argparse.ArgumentParser):
     p.add_argument("--min-seq-id", dest="seq_id_thr", type=float, default=0.0)
     p.add_argument("--min-aln-len", dest="aln_len_thr", type=int, default=0)
     p.add_argument("--alignment-type", type=int, default=2,
-                   help="0: 3Di, 1: TM-align, 2: 3Di+AA")
+                   help="0: 3Di, 1: TM-align, 2: 3Di+AA, 3: LoLalign")
     p.add_argument("--e-profile", dest="e_profile", type=float, default=-1.0,
                    help="e-value gate of non-final profile iterations")
     p.add_argument("--tmscore-threshold", type=float, default=0.0)
@@ -152,19 +152,30 @@ def cmd_easy_search(argv) -> int:
 
 def cmd_search(argv) -> int:
     from .db.storage import load_db
-    from .search.pipeline import search
-    from .search.profile import is_profile_db
+    from .search.pipeline import iterative_search, profile_search, search
+    from .search.profile import is_profile_db, load_profile_db
     from .search.resultdb import write_result_db
     args, params, device = _parse(
         _parser("search", ("query_db", "target_db", "result", "tmp_dir")),
         argv)
     if is_profile_db(args.query_db):
-        raise NotImplementedError(
-            "profile search is not ported yet (ROADMAP queue 1, item 12)")
+        # profile-vs-sequence search (query side = result2profile output)
+        results = profile_search(load_profile_db(args.query_db),
+                                 load_db(args.target_db), params, device)
+        write_result_db(results, args.result,
+                        add_backtrace=params.add_backtrace)
+        return 0
     qdb = load_db(args.query_db)
     tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
     os.makedirs(args.tmp_dir, exist_ok=True)
-    results = search(qdb, tdb, params, device, tmp_dir=args.tmp_dir)
+    if params.num_iterations > 1:
+        # the iterative workflow always aligns with -a
+        # (StructureSearch.cpp:178)
+        params.add_backtrace = True
+        results = iterative_search(qdb, tdb, params, params.num_iterations,
+                                   device, tmp_dir=args.tmp_dir)
+    else:
+        results = search(qdb, tdb, params, device, tmp_dir=args.tmp_dir)
     write_result_db(results, args.result, add_backtrace=params.add_backtrace)
     return 0
 

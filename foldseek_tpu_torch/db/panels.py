@@ -20,8 +20,8 @@ the device, and the per-split top-ks are merged on the host.
 
 `TorchPanelSet` is the one owner of what a target DB keeps on the device:
 the prefilter takes its panels from it, the alignment stage and
-`--prefilter-mode 3` take the residues. `resident_panels` keeps one DB's set
-alive between searches.
+`--prefilter-mode 3` take the residues, the TM/LDDT gate fleets the C-alpha
+panel. `resident_panels` keeps one DB's set alive between searches.
 """
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ from ..utils.log import logger
 PAD_LETTER = 21
 ROW_MULTIPLE = 128
 LT_MULTIPLE = 128
+# share of the free device memory the resident C-alpha panel may take
+CA_PANEL_FRACTION = 0.35
 
 
 def bucket_boundary(length: int) -> int:
@@ -138,8 +140,9 @@ def plan_splits(buckets: Sequence[Bucket],
 class TorchPanelSet:
     """What one target DB keeps on `device`, each part made at first use:
     the bucketed 3Di panels (streamed in splits when they exceed
-    `budget_bytes`, resident when they fit in one split) and the DB's
-    concatenated AA and 3Di residues with their entry offsets."""
+    `budget_bytes`, resident when they fit in one split), the DB's
+    concatenated AA and 3Di residues with their entry offsets, and its
+    C-alpha coordinates."""
 
     def __init__(self, db, device, budget_bytes: Optional[int] = None):
         self.db = db
@@ -151,6 +154,7 @@ class TorchPanelSet:
         self._splits: Optional[List[List[SplitPiece]]] = None
         self._resident = {}   # (bucket, row_start, row_end) -> device panel
         self._residues: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._ca: Optional[torch.Tensor] = None
 
     @property
     def buckets(self) -> List[Bucket]:
@@ -192,6 +196,26 @@ class TorchPanelSet:
                 torch.tensor(np.asarray(a, dtype=np.int8)).to(self.device)
                 for a in (self.db.aa, self.db.ss))
         return self._residues
+
+    def ca(self) -> Optional[torch.Tensor]:
+        """float32 [R, 3] C-alpha coordinates of every residue of the DB on
+        the device (12 bytes a residue), uploaded once: the gate fleets
+        gather aligned coordinates from it by absolute row. None when the DB
+        has no coordinates, when the panel would take more than
+        CA_PANEL_FRACTION of the free device memory, or when the rows pass
+        int32 (the gather indices' type); the caller then uploads the union
+        of the targets a fleet needs."""
+        if self._ca is None:
+            rows = int(self.offsets[-1])
+            if self.db.ca is None or rows >= (1 << 31):
+                return None
+            if self.device.type == "cuda":
+                free, _total = torch.cuda.mem_get_info(self.device)
+                if rows * 12 > free * CA_PANEL_FRACTION:
+                    return None
+            self._ca = torch.tensor(
+                np.asarray(self.db.ca, dtype=np.float32)).to(self.device)
+        return self._ca
 
 
 _resident_sets: dict = {}   # (tdb identity, device) -> TorchPanelSet

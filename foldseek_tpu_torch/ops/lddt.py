@@ -8,15 +8,16 @@ count over ALL query residues (aligned or not); average over M columns
 (columns with no neighbors are excluded, LDDT.h LDDTScoreResult NaN skip).
 
 The reference uses a 3-D grid hash to prune the O(L^2) neighbor search — a CPU
-optimization; here the masked pairwise form is a few vectorized ops. The
-batched device form (`batched_lddt_device`) belongs to the device gate fleet,
-which is not part of this package yet.
+optimization; here the masked pairwise form is a few vectorized ops.
+`lddt_chunk` / `batched_lddt_device` are the batched form of the device gate
+fleet (`ops/gates_device.py`) in plain PyTorch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 def backtrace_indices(backtrace: str, q_start: int, t_start: int):
@@ -103,3 +104,75 @@ def compute_lddt(q_ca: np.ndarray, t_ca: np.ndarray,
     score_length = int(valid.sum())
     avg = float(per_col[valid].sum() / score_length) if score_length else 0.0
     return LDDTResult(avg, np.nan_to_num(per_col), score_length)
+
+
+# bytes one [chunk, M, M] float32 temporary of the batched form may take
+LDDT_TEMP_BYTES = 1 << 27
+
+
+def lddt_chunk_for(m_pad: int) -> int:
+    """Power-of-two number of pairs a chunk of the batched LDDT holds,
+    bounding each [chunk, m_pad, m_pad] float32 temporary to
+    LDDT_TEMP_BYTES."""
+    c = LDDT_TEMP_BYTES // (4 * m_pad * m_pad)
+    return 1 << max(3, min(12, c.bit_length() - 1))
+
+
+def _pair_distances(x: torch.Tensor) -> torch.Tensor:
+    """[P, M, M] distances of [P, M, 3] points from direct per-pair
+    differences, one coordinate at a time (no [P, M, M, 3] cube). A Gram
+    product (n_i + n_j - 2 x_i.x_j) would cancel by |x|^2 / d^2 at d ~ 1 A,
+    about 1e-3 A, which biases |dq - dt| up near the 0.5 / 1 / 2 / 4
+    thresholds: a one-sided LDDT deficit. Direct differences keep the error
+    at d * eps."""
+    d2 = None
+    for a in range(3):
+        c = x[:, :, a]
+        diff = c[:, :, None] - c[:, None, :]
+        d2 = diff.square_() if d2 is None else d2.addcmul_(diff, diff)
+    return d2.sqrt_()
+
+
+def lddt_chunk(q: torch.Tensor, t: torch.Tensor, dg: torch.Tensor,
+               ml: torch.Tensor):
+    """LDDT of one chunk of pairs: q, t [P, M, 3] padded aligned coords, dg
+    [P, M] per-column query degrees, ml int [P] true column counts. Returns
+    (avg float32 [P], number of scored columns float32 [P])."""
+    M = q.shape[1]
+    idx = torch.arange(M, device=q.device)
+    valid = idx[None, :] < ml[:, None]                          # [P, M]
+    dq = _pair_distances(q)
+    close = (dq < 15.0) & valid[:, :, None] & valid[:, None, :] \
+        & (idx[:, None] != idx[None, :])
+    dl = dq.sub_(_pair_distances(t)).abs_()
+    pair = 0.25 * ((dl < 0.5).to(torch.float32) + (dl < 1.0) + (dl < 2.0)
+                   + (dl < 4.0))
+    col = pair.mul_(close).sum(2)
+    ok = (dg > 0) & valid
+    per_col = torch.where(ok, col / dg.clamp_min(1.0), 0.0)
+    n_ok = ok.sum(1)
+    avg = torch.where(n_ok > 0, per_col.sum(1) / n_ok.clamp_min(1), 0.0)
+    return avg.to(torch.float32), n_ok.to(torch.float32)
+
+
+def batched_lddt_device(qa: np.ndarray, ta: np.ndarray, deg: np.ndarray,
+                        m_len: np.ndarray, device: torch.device,
+                        chunk: int = 0):
+    """Batched C-alpha LDDT on `device`: [P, M_pad, 3] padded aligned
+    coords, [P, M_pad] per-column query degrees, [P] true column counts.
+    Returns (avg [P] float32, score_len [P] int32). Scores match
+    compute_lddt to float32 accuracy."""
+    device = torch.device(device)
+    P, M, _ = qa.shape
+    chunk = chunk or lddt_chunk_for(M)
+    q = torch.from_numpy(np.asarray(qa, np.float32)).to(device)
+    t = torch.from_numpy(np.asarray(ta, np.float32)).to(device)
+    dg = torch.from_numpy(np.asarray(deg, np.float32)).to(device)
+    ml = torch.from_numpy(np.asarray(m_len, np.int32)).to(device)
+    if P == 0:
+        return np.zeros(0, np.float32), np.zeros(0, np.int32)
+    parts = [lddt_chunk(q[c: c + chunk], t[c: c + chunk], dg[c: c + chunk],
+                        ml[c: c + chunk]) for c in range(0, P, chunk)]
+    avg = torch.cat([a for a, _ in parts]).cpu().numpy()
+    n_ok = torch.cat([n for _, n in parts]).cpu().numpy()
+    return avg, n_ok.astype(np.int32)

@@ -11,15 +11,18 @@ structure bits, sort and emit.
 Device mapping: `PairScorer` sends every (query, candidate) pair of the
 stage, forward and reversed profile, to one call of `sw_scores_pairs` (the
 CUDA kernel on a CUDA device, its plain PyTorch version on the CPU). The
-per-hit work (backtrace, TM, LDDT) runs in the native host library under a
-thread pool.
+backtraces run in the native host library under a thread pool. TM and LDDT
+of the accepted hits run either there (`batch_gates`, float64) or as device
+fleets (`ops/gates_device.py`, float32; see DEVICE_GATES_MIN_PAIRS),
+dispatched wave by wave so that the device computes one wave's gates while
+the host backtraces the next.
 """
 from __future__ import annotations
 
 import math
 import os
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ from ..nn.evalue import EvalueComputer
 from ..ops import backtrace as bt_ops
 from ..ops import lddt as lddt_ops
 from ..ops import tmscore as tm_ops
+from ..ops.gates_device import GateFleet, m_pad_for
 from ..ops.matrices import blosum62, mat3di
 from ..ops.sw import QueryProfile
 from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
@@ -51,11 +55,16 @@ class PairScorer:
 
     def __init__(self, qdb: StructDB, tdb: StructDB, params: SearchParams,
                  prefilter: Dict[int, Sequence[int]], qkey_to_idx,
-                 tkey_to_idx, device: torch.device):
+                 tkey_to_idx, device: torch.device,
+                 query_profiles: Optional[Dict[int, object]] = None):
         self.per_query: Dict[int, tuple] = {}
         self.profs: Dict[int, QueryProfile] = {}
         self.rprofs: Dict[int, QueryProfile] = {}
         for qkey in prefilter:
+            if query_profiles is not None:
+                # prebuilt PSSM profiles (profile and iterative search)
+                self.profs[int(qkey)] = query_profiles[int(qkey)]
+                continue
             qi = qkey_to_idx[int(qkey)]
             self.profs[int(qkey)] = QueryProfile(
                 np.asarray(qdb.get_aa(qi)), np.asarray(qdb.get_ss(qi)),
@@ -94,24 +103,39 @@ class PairScorer:
             self.per_query[qk] = (score[fwd], qend[fwd], tend[fwd], score[rev])
 
 
+# Candidate pairs of a stage from which a card takes the TM/LDDT gates as
+# device fleets by default. Measured on an NVIDIA H100 80GB HBM3, 700.00 W,
+# with 8 host cores (chip_smoke.py, 16 queries x 100,000 targets, the fleet
+# alone from dispatch to readback beside the host's batch_gates, three runs
+# on three machines): 16,000 hits 0.47 / 0.59 / 0.78 s against 0.74 / 1.16 /
+# 1.22 s; 4,000 hits 0.13 / 0.34 / 0.23 s against 0.19 / 0.27 / 0.30 s; 1,000
+# hits 0.13 / 0.18 / 0.22 s against 0.06 / 0.08 / 0.16 s. The fleet wins at
+# 16,000, loses at 1,000 and 4,000 goes either way, so the threshold lies
+# between the two. End to end the two sides lie inside the host's spread.
+# FOLDSEEK_TPU_DEVICE_GATES=1 forces the fleets on any device and size, =0
+# forces the host.
+DEVICE_GATES_MIN_PAIRS = 8192
+
+
 def align_all(qdb: StructDB, tdb: StructDB,
               prefilter: Dict[int, Sequence[int]], params: SearchParams,
               device: torch.device,
-              same_db: bool = False) -> Dict[int, List[AlnResult]]:
+              same_db: bool = False,
+              query_profiles: Optional[Dict[int, object]] = None
+              ) -> Dict[int, List[AlnResult]]:
     """Run the alignment stage for every query.
 
     prefilter: query key -> ordered candidate target keys.
+    query_profiles: optional prebuilt PSSM profiles (profile and iterative
+    search).
     Returns query key -> sorted AlnResult list."""
-    if os.environ.get("FOLDSEEK_TPU_DEVICE_GATES", "") == "1":
-        raise NotImplementedError(
-            "device TM/LDDT gates are not ported yet (ROADMAP queue 1, "
-            "item 8); the port computes the gates on the host")
+    device = torch.device(device)
     ev = EvalueComputer(tdb.total_residues)
     tkey_to_idx = tdb.key_to_index()
     qkey_to_idx = qdb.key_to_index()
     t0 = time.perf_counter()
     scorer = PairScorer(qdb, tdb, params, prefilter, qkey_to_idx,
-                        tkey_to_idx, device)
+                        tkey_to_idx, device, query_profiles=query_profiles)
     record_stage("sw_scoring", time.perf_counter() - t0)
 
     need_tm = params.tmscore_threshold > 0 or params.sort_by_structure_bits
@@ -130,8 +154,19 @@ def align_all(qdb: StructDB, tdb: StructDB,
                  and params.tmscore_threshold <= 0
                  and params.lddt_threshold <= 0
                  and params.alt_alignment == 0)
-    gates_mode = ("host" if can_defer and native_ready()
-                  else "inline")
+    gate_env = os.environ.get("FOLDSEEK_TPU_DEVICE_GATES", "")
+    if gate_env == "1":
+        gate_min = 0
+    elif gate_env == "0" or device.type != "cuda":
+        gate_min = None   # the host's batch_gates, whatever the size
+    else:
+        gate_min = DEVICE_GATES_MIN_PAIRS
+    defer_gates = (can_defer and gate_min is not None
+                   and sum(len(v) for v in prefilter.values()) >= gate_min)
+    if defer_gates:
+        gates_mode = "device"
+    else:
+        gates_mode = "host" if can_defer and native_ready() else "inline"
 
     def one(qkey_cands):
         qkey, cand_keys = qkey_cands
@@ -142,9 +177,172 @@ def align_all(qdb: StructDB, tdb: StructDB,
             gates_mode=gates_mode)
 
     t0 = time.perf_counter()
+    if defer_gates:
+        # waves: each wave's TM/LDDT fleets are dispatched as soon as its
+        # backtraces exist, so the device computes wave k while the host
+        # runs wave k + 1's per-hit loop; the drain at the end then mostly
+        # finds finished work
+        items = list(prefilter.items())
+        n_waves = min(4, max(1, len(items) // 4))
+        per = -(-len(items) // n_waves)
+        out = {}
+        in_flight = []
+        for w0 in range(0, len(items), per):
+            wave_out = dict(map_queries(one, items[w0:w0 + per]))
+            out.update(wave_out)
+            in_flight.append(_device_gates_dispatch(
+                qdb, tdb, wave_out, params, qkey_to_idx, tkey_to_idx,
+                need_tm, need_lddt, device))
+        record_stage("host_loop", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for fleets in in_flight:
+            _device_gates_finish(fleets, params, need_tm, need_lddt)
+        record_stage("gates_drain", time.perf_counter() - t0)
+        key = (compare_hits_by_structure_bits
+               if params.sort_by_structure_bits else compare_hits)
+        for rs in out.values():
+            rs.sort(key=key)
+        return out
     out = dict(map_queries(one, prefilter.items()))
     record_stage("host_loop", time.perf_counter() - t0)
     return out
+
+
+def _device_gates_dispatch(qdb, tdb, results, params, qkey_to_idx,
+                           tkey_to_idx, need_tm, need_lddt, device,
+                           check_every: int = -1):
+    """Dispatch fused batched TM + LDDT (ops/gates_device) over every
+    accepted hit of `results`, with device-side coordinate gather from the
+    resident target C-alpha panel. One fleet per bucket of alignment
+    lengths; returns the fleets in flight, so that the caller can go on with
+    host work before draining them with `_device_gates_finish`. Tiny
+    alignments (< 8 columns) take the host path at once: degenerate
+    superpositions are where float32 and the reference's float64 could
+    drift. `check_every` is `GateFleet.dispatch`'s (-1: the device's
+    default)."""
+    lddt_ctx_cache: Dict[int, tuple] = {}
+    buckets: Dict[int, list] = {}  # m_pad -> [(res, qkey, ti, norm, m)]
+    for qkey, rs in results.items():
+        qi = qkey_to_idx[int(qkey)]
+        q_ca = qdb.get_ca(qi)
+        q_len = qdb.entry_len(qi)
+        if need_lddt and int(qkey) not in lddt_ctx_cache:
+            lddt_ctx_cache[int(qkey)] = lddt_ops.lddt_query_context(q_ca)
+        ctx = lddt_ctx_cache.get(int(qkey))
+        for res in rs:
+            ti = tkey_to_idx[res.db_key]
+            m = res.backtrace.count("M")
+            if m < 8:
+                _host_gates_one(res, q_ca, tdb.get_ca(ti), ctx, params,
+                                q_len, tdb.entry_len(ti), need_tm, need_lddt)
+                continue
+            norm = tm_ops.normalization(
+                params.tmscore_threshold_mode,
+                min(res.q_end - res.q_start, res.t_end - res.t_start),
+                q_len, res.t_len)
+            buckets.setdefault(m_pad_for(m), []).append(
+                (res, int(qkey), ti, norm, m))
+    if not buckets:
+        return []
+
+    # query coords + per-residue LDDT degree, concatenated per wave (small)
+    q_row: Dict[int, int] = {}
+    qc_list, qd_list = [], []
+    rows = 0
+    for qkey in results:
+        qi = qkey_to_idx[int(qkey)]
+        q_row[int(qkey)] = rows
+        qc = np.asarray(qdb.get_ca(qi), dtype=np.float32)
+        qc_list.append(qc)
+        if need_lddt and int(qkey) in lddt_ctx_cache:
+            qd_list.append(lddt_ctx_cache[int(qkey)][1])
+        else:
+            qd_list.append(np.zeros(len(qc), np.float32))
+        rows += len(qc)
+    q_coords = torch.from_numpy(np.concatenate(qc_list)).to(device)
+    q_deg = torch.from_numpy(
+        np.concatenate(qd_list).astype(np.float32)).to(device)
+
+    # target panel: the whole DB's resident one, or the union of the targets
+    # this wave needs when the DB's does not fit the device budget
+    t_panel = resident_panels(tdb, device).ca()
+    if t_panel is not None:
+        t_base = np.asarray(tdb.offsets[:-1], dtype=np.int64)
+    else:
+        needed = sorted({ti for items in buckets.values()
+                         for (_, _, ti, _, _) in items})
+        t_base = np.zeros(tdb.size, dtype=np.int64)
+        tc_list = []
+        rows = 0
+        for ti in needed:
+            t_base[ti] = rows
+            tc = np.asarray(tdb.get_ca(ti), dtype=np.float32)
+            tc_list.append(tc)
+            rows += len(tc)
+        t_panel = torch.from_numpy(np.concatenate(tc_list)).to(device)
+
+    # gather indices of a whole bucket from one vectorised pass over the
+    # joined backtrace strings
+    fleets = []
+    for m_pad, items in sorted(buckets.items()):
+        fleet = GateFleet(m_pad, len(items), need_tm, need_lddt)
+        P = len(items)
+        joined = "".join(it[0].backtrace for it in items).encode("ascii")
+        arr = np.frombuffer(joined, dtype=np.uint8)
+        lens = np.fromiter((len(it[0].backtrace) for it in items),
+                           dtype=np.int64, count=P)
+        off = np.zeros(P + 1, dtype=np.int64)
+        np.cumsum(lens, out=off[1:])
+        seg = np.repeat(np.arange(P, dtype=np.int64), lens)
+        qstep = arr != ord("D")
+        tstep = arr != ord("I")
+        mmask = arr == ord("M")
+        # per-segment exclusive cumsums via global-cumsum rebasing
+        cq = np.cumsum(qstep)
+        ct = np.cumsum(tstep)
+        cm = np.cumsum(mmask)
+        base = off[:-1]
+        lq_excl = (cq - qstep) - (cq[base] - qstep[base])[seg]
+        lt_excl = (ct - tstep) - (ct[base] - tstep[base])[seg]
+        lm_excl = (cm - mmask) - (cm[base] - mmask[base])[seg]
+        q_starts = np.fromiter((it[0].q_start for it in items),
+                               dtype=np.int64, count=P)
+        t_starts = np.fromiter((it[0].t_start for it in items),
+                               dtype=np.int64, count=P)
+        q_rows = np.fromiter((q_row[it[1]] for it in items),
+                             dtype=np.int64, count=P)
+        t_bases = np.fromiter((t_base[it[2]] for it in items),
+                              dtype=np.int64, count=P)
+        rows = seg[mmask]
+        cols = lm_excl[mmask]
+        fleet.qabs[rows, cols] = (q_rows[rows] + q_starts[rows]
+                                  + lq_excl[mmask])
+        fleet.tabs[rows, cols] = (t_bases[rows] + t_starts[rows]
+                                  + lt_excl[mmask])
+        fleet.m_len[:] = np.fromiter((it[4] for it in items),
+                                     dtype=np.int32, count=P)
+        fleet.norm[:] = np.fromiter((it[3] for it in items),
+                                    dtype=np.int32, count=P)
+        fleet.dispatch(t_panel, q_coords, q_deg, check_every)
+        fleets.append((items, fleet))
+    return fleets
+
+
+def _device_gates_finish(fleets, params, need_tm, need_lddt):
+    """Wait for each fleet in flight and apply TM / LDDT and the
+    structure-bit score scaling."""
+    for items, fleet in fleets:
+        tm, lddt, _ = fleet.result()
+        for j, (res, *_rest) in enumerate(items):
+            if need_tm:
+                res.tm = float(tm[j])
+            if need_lddt:
+                res.lddt = float(lddt[j])
+            if params.sort_by_structure_bits and need_tm and need_lddt:
+                # degenerate superpositions (toy/colinear coords) can yield
+                # NaN TM; finite-positive guard keeps parity elsewhere
+                f = res.lddt * res.tm
+                res.score = int(res.score * math.sqrt(f)) if f > 0 else 0
 
 
 def _host_gates_one(res, q_ca, t_ca, lddt_ctx, params, q_len, t_len,
@@ -196,10 +394,15 @@ def _pre_gate_mask(params, q_len, t_lens, qend, tend, ev_fwd, ev_corr):
 BLOCK_FAIL = object()
 
 
-def use_block_aligner() -> bool:
-    """True when the native host library with the reference's default
-    block-aligner backtrace (alignStartPosBacktraceBlock) is loaded; without
-    it the backtraces fall back to `recover_alignment` in Python."""
+def use_block_aligner(prof) -> bool:
+    """True when the backtrace of this query takes the reference's default
+    block-aligner path (alignStartPosBacktraceBlock): a plain sequence query
+    and the native host library loaded. Profile queries (PSSMQueryProfile)
+    take the alignStartPosBacktrace reverse-SW path
+    (structurealign.cpp:77+92); without the library the backtraces fall back
+    to `recover_alignment` in Python."""
+    if type(prof) is not QueryProfile:
+        return False
     lib = native.get_lib()
     return lib is not None and hasattr(lib, "batch_recover_block")
 
@@ -261,24 +464,45 @@ def _block_traceback_one(prof, t_aa, t_ss, score, q_end, t_end):
 
 def _batch_tracebacks(prof, tdb, tids, params, fwd, qend, tend, pre_ok):
     """ci -> Traceback (or BLOCK_FAIL) for every candidate the serial loop
-    would backtrace, recovered in one native block-aligner call. Empty when
-    batching can't reproduce the loop exactly (non-default accept/reject
-    budgets: an early break could skip candidates) or the native lib is
-    absent."""
+    would backtrace, recovered in one native call: the block aligner for a
+    sequence query, reverse SW + banded traceback for a profile query. Empty
+    when batching can't reproduce the loop exactly (non-default
+    accept/reject budgets: an early break could skip candidates) or the
+    native lib is absent."""
     if (params.max_accept < INT_MAX or params.max_rejected < INT_MAX
-            or len(tids) == 0 or not use_block_aligner()):
+            or len(tids) == 0 or not native_ready()):
         return {}
     surv = np.nonzero(pre_ok)[0]
     if not len(surv):
         return {}
     offs = np.asarray(tdb.offsets)
+    if use_block_aligner(prof):
+        with StageTimer("batch_recover"):
+            res = _block_tracebacks(
+                prof, np.asarray(tdb.aa), np.asarray(tdb.ss),
+                offs[tids[surv]], tend[surv], fwd[surv], qend[surv])
+        if res is None:
+            return {}
+        return {int(ci): res[j] for j, ci in enumerate(surv)}
+    if type(prof) is QueryProfile:
+        return {}   # a library without the block aligner: per-hit Python
+    fprof = getattr(prof, "_flipped_cache", None)
+    if fprof is None:
+        fprof = prof.flipped()
+        prof._flipped_cache = fprof
     with StageTimer("batch_recover"):
-        res = _block_tracebacks(
-            prof, np.asarray(tdb.aa), np.asarray(tdb.ss),
-            offs[tids[surv]], tend[surv], fwd[surv], qend[surv])
+        res = native.batch_recover(
+            fprof.prof_aa, fprof.prof_ss, prof.prof_aa, prof.prof_ss,
+            np.asarray(prof.q_aa), np.asarray(tdb.aa), np.asarray(tdb.ss),
+            offs[tids[surv]], tend[surv], fwd[surv], qend[surv],
+            prof.gap_open, prof.gap_extend)
     if res is None:
         return {}
-    return {int(ci): res[j] for j, ci in enumerate(surv)}
+    q_start, t_start, ident, ops = res
+    return {int(ci): bt_ops.Traceback(
+                q_start=int(q_start[j]), t_start=int(t_start[j]),
+                backtrace=ops[j], identical_aa=int(ident[j]))
+            for j, ci in enumerate(surv) if ops[j] is not None}
 
 
 def align_query(qi: int, qdb: StructDB, tdb: StructDB,
@@ -342,7 +566,7 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
         ti = tids[ci]
 
         tb = pre_tb.get(ci)
-        if tb is None and use_block_aligner():
+        if tb is None and use_block_aligner(prof):
             tb = _block_traceback_one(
                 prof, np.asarray(tdb.get_aa(ti)), np.asarray(tdb.get_ss(ti)),
                 int(fwd[ci]), int(qend[ci]), int(tend[ci]))
@@ -474,7 +698,7 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
                     break
                 a_tb = (_block_traceback_one(prof, t_aa_m, t_ss_m,
                                              int(a_fwd), a_qe, a_te)
-                        if use_block_aligner() else None)
+                        if use_block_aligner(prof) else None)
                 if a_tb is BLOCK_FAIL:
                     break  # reference would emit a -1/-1 empty-backtrace
                     # alt row (computeAlternativeAlignment -> the same dead
@@ -507,6 +731,8 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
                 results.append(alt)
                 prev = alt
 
+    if gates_mode == "device":
+        return results  # the caller sorts after the fleets' TM/LDDT scaling
     if gates_mode == "host":
         _host_gates_batch(results, tdb, tkey_to_idx, params, q_len, q_ca,
                           lddt_ctx, need_tm, need_lddt)

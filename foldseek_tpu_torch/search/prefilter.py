@@ -1,13 +1,14 @@
 """Prefilter stages of the port (reference: src/workflow/StructureSearch.cpp:
 114-127, data/structuresearch.sh:41-53).
 
+* KMER (mode 0, the default) — the k-mer prefilter on the host,
+  search/kmer.py.
 * UNGAPPED (mode 1, what `--gpu 1` selects) — the gapless device scan,
   search/ungapped.py.
 * EXHAUSTIVE (mode 2 or --exhaustive-search) — every query paired with every
   target in key order.
 Mode 3 (ungapped + gapped, results without the align stage) is dispatched by
-`search/pipeline.py` before this stage. The k-mer prefilter (mode 0) and the
-index server are not ported.
+`search/pipeline.py` before this stage. The index server is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +35,5 @@ def run_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
     if params.prefilter_mode == PREF_MODE_UNGAPPED:
         from .ungapped import ungapped_prefilter
         return ungapped_prefilter(qdb, tdb, params, device)
-    raise NotImplementedError(
-        "the k-mer prefilter (--prefilter-mode 0) is not ported yet (ROADMAP "
-        "queue 1, item 12); use --gpu 1 or --prefilter-mode 1")
+    from .kmer import kmer_prefilter
+    return kmer_prefilter(qdb, tdb, params, k=params.kmer_size)

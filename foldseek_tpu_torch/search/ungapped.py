@@ -112,6 +112,21 @@ class UngappedPrefilter:
             biases.append(b)
         return self._run_batch(profs, biases, params)
 
+    def query_profile(self, prof_ss: np.ndarray,
+                      params: SearchParams) -> List[tuple]:
+        """Prefilter with a prebuilt [21, L] 3Di profile (profile searches;
+        the reference's GPU path feeds the PSSM to its gapless kernel the
+        same way, ungappedprefilter.cpp:135-199)."""
+        return self.query_profiles([prof_ss], params)[0]
+
+    def query_profiles(self, profs_ss: Sequence[np.ndarray],
+                       params: SearchParams) -> List[List[tuple]]:
+        """`query_profile` for several profiles as one stack: one kernel
+        launch a panel piece for all of them."""
+        profs = [np.asarray(p, dtype=np.float32) for p in profs_ss]
+        return self._run_batch(
+            profs, [abs(min(int(p.min()), 0)) for p in profs], params)
+
     def _run_batch(self, profs, byte_biases, params: SearchParams):
         stacks = make_profile_stacks(profs, byte_biases, self.device)
         nq = len(profs)

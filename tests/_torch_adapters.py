@@ -93,3 +93,52 @@ def sw_scores_query(prof_aa, prof_ss, t_aa, t_ss, t_len, gap_open: int = 10,
                                 torch.as_tensor(t_len)[None], 1, 1,
                                 gap_open, gap_extend)
     return tuple(x[0] for x in out)
+
+
+def torch_fleet_from_jax(jfleet):
+    """The port's GateFleet holding the same gather indices as a filled
+    `foldseek_tpu.ops.gates_device.GateFleet` (whose arrays are padded to a
+    power of two of pairs; the port's hold the real pairs only)."""
+    from foldseek_tpu_torch.ops.gates_device import GateFleet
+    fleet = GateFleet(jfleet.m_pad, jfleet.n, jfleet.need_tm,
+                      jfleet.need_lddt)
+    for name in ("qabs", "tabs", "m_len", "norm"):
+        getattr(fleet, name)[...] = getattr(jfleet, name)[:jfleet.n]
+    return fleet
+
+
+def fixture_inputs(golden_dir):
+    """The structure files the repository carries: 16 superposed globin PDBs
+    and one Foldcomp entry."""
+    return ([str(p) for p in sorted((golden_dir / "msa" / "sup").glob("*.pdb"))]
+            + [str(golden_dir / "d1asha.fcz")])
+
+
+def make_fixture_dbs(golden_dir, out_dir, n_targets: int, n_queries: int):
+    """The 17-entry fixture DB expanded by db/synth.py to `n_targets` targets
+    (seed 1) and `n_queries` queries (seed 4), loaded by each package's own
+    `load_db`: ((jax targets, jax queries), (port targets, port queries)).
+    n_targets 0 keeps the 17 entries themselves as the targets."""
+    from foldseek_tpu.db import storage as jstorage
+    from foldseek_tpu.db.synth import synth_db
+    from foldseek_tpu.ingest.createdb import create_db
+    from foldseek_tpu_torch import db as tdbmod
+    base = create_db(fixture_inputs(golden_dir), str(out_dir / "base"))
+    tdir = str(out_dir / "base")
+    if n_targets:
+        tdir = str(out_dir / f"t{n_targets}")
+        synth_db(base, n_targets, tdir, seed=1)
+    qdir = str(out_dir / f"q{n_queries}")
+    synth_db(base, n_queries, qdir, seed=4)
+    return ((jstorage.load_db(tdir), jstorage.load_db(qdir)),
+            (tdbmod.load_db(tdir), tdbmod.load_db(qdir)))
+
+
+def few_torch_threads():
+    """Fixture body: two intra-op threads while a module's tests run. At the
+    tests' small shapes more threads gain nothing, and with several test
+    workers on one machine they only fight each other for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -234,11 +234,14 @@ def test_prefilter_split_and_topk_on_card(cuda, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", [1, 3])
-def test_search_on_card_matches_cpu(cuda, tmp_path, mode):
-    """m8 on cuda == m8 on cpu, for the --gpu 1 path and for
+def test_search_on_card_matches_cpu(cuda, tmp_path, mode, monkeypatch):
+    """m8 on cuda == m8 on cpu, for the --gpu 1 path (with the host's
+    float64 TM/LDDT gates on both sides: the card's own float32 fleets are
+    held to a band in test_search_device_gates_on_card) and for
     --prefilter-mode 3 (3Di-only profiles: ties in the end positions are
     commoner than with two alphabets)."""
     from foldseek_tpu_torch.search import SearchParams, format_results, search
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
     tdb, qdb = _fixture_dbs(tmp_path, 1500, 6)
     lines = {}
     for dev in (cuda, torch.device("cpu")):
@@ -357,3 +360,127 @@ def test_wrappers_reject_profiles_outside_int8_on_card(cuda):
         bad[6] = bad[6].copy()
         bad[6][0] = args[4].numel()
         tk.sw_scores_pairs(*bad)
+
+
+# --- the TM/LDDT gate fleet and the PSSM call shapes ---------------------------
+
+def _walk_pairs(rng, n_pairs, m_pad):
+    xa = np.zeros((n_pairs, m_pad, 3), np.float32)
+    ya = np.zeros_like(xa)
+    m_len = np.zeros(n_pairs, np.int32)
+    for p in range(n_pairs):
+        n = int(rng.randint(10, m_pad))
+        q = np.cumsum(rng.normal(size=(n, 3), scale=2.2), 0)
+        rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        rot *= np.sign(np.linalg.det(rot))
+        xa[p, :n] = q @ rot.T + rng.normal(size=(n, 3), scale=rng.uniform(0.2, 2))
+        ya[p, :n], m_len[p] = q, n
+    return xa, ya, m_len
+
+
+@pytest.mark.parametrize("m_pad", [64, 192])
+def test_gate_fleet_on_card_matches_cpu(cuda, m_pad):
+    """TM and LDDT of the fleet on the card against the same float32 program
+    on the CPU, within 1e-5 (the sums are taken in another order), with and
+    without the convergence test."""
+    from foldseek_tpu_torch.ops.lddt import (batched_lddt_device,
+                                             lddt_query_context)
+    from foldseek_tpu_torch.ops.tm_device import batched_tm_device
+    rng = np.random.RandomState(m_pad)
+    xa, ya, m_len = _walk_pairs(rng, 40, m_pad)
+    norm = m_len + rng.randint(0, 30, len(m_len))
+    cpu = torch.device("cpu")
+    want = batched_tm_device(xa, ya, m_len, norm, cpu)
+    for check_every in (0, 4):
+        got = batched_tm_device(xa, ya, m_len, norm, cuda,
+                                check_every=check_every)
+        assert np.abs(got - want).max() < 1e-5
+    deg = np.zeros(xa.shape[:2], np.float32)
+    for p, n in enumerate(m_len):
+        deg[p, :n] = lddt_query_context(ya[p, :n])[1]
+    got, got_n = batched_lddt_device(ya, xa, deg, m_len, cuda)
+    want, want_n = batched_lddt_device(ya, xa, deg, m_len, cpu)
+    assert np.array_equal(got_n, want_n) and np.abs(got - want).max() < 1e-5
+
+
+def test_search_device_gates_on_card(cuda, tmp_path, monkeypatch):
+    """The --gpu 1 path with the gate fleets on the card (forced, whatever
+    the size) against the host's gates on the CPU: equal hit sets and
+    backtraces; TM and LDDT within 2e-3, the structure-bit score within 1
+    (float32 fleets against the float64 host engine)."""
+    from foldseek_tpu_torch.ops.gates_device import GateFleet
+    from foldseek_tpu_torch.search import SearchParams, search
+    tdb, qdb = _fixture_dbs(tmp_path, 600, 4)
+    params = SearchParams(prefilter_mode=1, add_backtrace=True)
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
+    before = GateFleet.dispatches
+    dev = search(qdb, tdb, params, cuda, same_db=False)
+    torch.cuda.synchronize()
+    assert GateFleet.dispatches > before
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    host = search(qdb, tdb, params, torch.device("cpu"), same_db=False)
+    n = 0
+    for qk, hs in host.items():
+        d_by = {r.db_key: r for r in dev[qk]}
+        assert set(d_by) == {r.db_key for r in hs}
+        for h in hs:
+            d = d_by[h.db_key]
+            assert d.backtrace == h.backtrace and d.evalue == h.evalue
+            assert abs(d.tm - h.tm) < 2e-3 and abs(d.lddt - h.lddt) < 2e-3
+            assert abs(d.score - h.score) <= 1
+            n += 1
+    assert n > 1000
+
+
+def _pssm_profiles(tmp_path):
+    """PSSM query profiles as the profile path builds them, from a first
+    search on the CPU."""
+    from foldseek_tpu_torch.search import SearchParams, search
+    from foldseek_tpu_torch.search.profile import (profile_query,
+                                                   result2profile)
+    tdb, qdb = _fixture_dbs(tmp_path, 400, 3)
+    res = search(qdb, tdb, SearchParams(prefilter_mode=1, add_backtrace=True,
+                                        evalue_thr=0.001, max_seqs=60),
+                 torch.device("cpu"), same_db=False)
+    return tdb, [profile_query(p)
+                 for p in result2profile(qdb, tdb, res).values()]
+
+
+def test_pssm_call_shapes_on_card(cuda, tmp_path):
+    """K1 through `query_profile` and K3 through a PSSMQueryProfile pair
+    list (forward and column-flipped slots): the card's results equal the
+    plain versions' exactly."""
+    from foldseek_tpu_torch.db.panels import TorchPanelSet
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search import ungapped as tung
+    tdb, qprofs = _pssm_profiles(tmp_path)
+    cpu = torch.device("cpu")
+    before = tg.gapless_scores_batch.launches
+    for qp in qprofs:
+        assert not qp.prof_ss[20].any() and qp.prof_ss.min() < 0
+        got = tung.UngappedPrefilter(tdb, cuda).query_profile(
+            qp.prof_ss, SearchParams())
+        want = tung.UngappedPrefilter(tdb, cpu).query_profile(
+            qp.prof_ss, SearchParams())
+        assert got == want and len(got) > 10
+    assert tg.gapless_scores_batch.launches > before
+    slots = [p for qp in qprofs for p in (qp, qp.reversed())]
+    paa, pss, slot_off = tk.pack_sw_slots([p.prof_aa for p in slots],
+                                          [p.prof_ss for p in slots])
+    offs = np.asarray(tdb.offsets, dtype=np.int64)
+    tids = np.tile(np.arange(200), len(slots))
+    pair_start = np.arange(len(slots) + 1) * 200
+
+    def run(dev):
+        res_aa, res_ss = TorchPanelSet(tdb, dev).residues()
+        return tk.sw_scores_pairs(
+            torch.from_numpy(paa).to(dev), torch.from_numpy(pss).to(dev),
+            slot_off, pair_start, res_aa, res_ss, offs[tids],
+            offs[tids + 1] - offs[tids])
+    before = tk.sw_scores_pairs.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert tk.sw_scores_pairs.launches == before + 1
+    for g, w in zip(got, run(cpu)):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[0].max()) > 50

@@ -510,14 +510,28 @@ def test_get_device():
     dict(num_iterations=2), dict(alignment_type=1), dict(alignment_type=3),
     dict(index_server="index.sock"), "device_gates"])
 def test_unported_modes_raise(dbs, change, monkeypatch):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item (--cluster-search, --index-server); the modes ported since (the
+    k-mer prefilter, iterative search, alignment types 1 and 3, the device
+    gates) run and return hits."""
     tdb, qdb = dbs[1].tdb, dbs[1].qdb
-    params = SearchParams(**GPU_KW)
+    params = replace(SearchParams(**GPU_KW), max_seqs=20)
+    monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")   # a JAX client lives here
     if change == "device_gates":
         monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
     else:
         params = replace(params, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.search(qdb, tdb, params, CPU, same_db=False)
+    if change != "device_gates" and (
+            "cluster_search" in change or "index_server" in change):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.search(qdb, tdb, params, CPU, same_db=False)
+        return
+    tpipe.check_supported(params)
+    if change != "device_gates" and "num_iterations" in change:
+        res = tpipe.iterative_search(qdb, tdb, params, 2, CPU, same_db=False)
+    else:
+        res = tpipe.search(qdb, tdb, params, CPU, same_db=False)
+    assert sum(len(v) for v in res.values()) >= qdb.size
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
