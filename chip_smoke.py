@@ -25,7 +25,7 @@ Phases (any failure exits nonzero and prints no result line):
      gapless and the SW kernel must have launched in the cold run. Once with
      the TM/LDDT gates as the card runs them by default and once with
      FOLDSEEK_TPU_DEVICE_GATES forcing the other side (1: device fleets, 0:
-     the host's batch_gates), then twenty warm runs in turns (ten pairs,
+     the host's batch_gates), then twelve warm runs in turns (six pairs,
      alternating which side runs first); the two sides' records are compared hit by hit (equal hit sets and backtraces; TM and
      LDDT within 2e-3, the structure-bit score within 1).
   5b. the gate fleet alone, on that run's own accepted hits: the device
@@ -50,8 +50,32 @@ Phases (any failure exits nonzero and prints no result line):
      beside its kernel time (torch.profiler).
   7. parity: on a 2000-target DB the m8 lines on cuda equal those on cpu,
      byte for byte, for mode 1 with host gates, mode 3, mode 0, two
-     iterations and alignment types 1 and 3; mode 1 with the device gates on
-     the card against the host gates on the cpu inside the band of phase 5.
+     iterations and alignment types 1 and 3. With the host's gates, also
+     byte for byte on that DB: easy-cluster's three files (the 2000
+     clustered), the cluster-search m8 over those clusters, the easy-rbh m8
+     (the queries against the 2000, --gpu 1), the multimer score lines and
+     report (both DBs regrouped into two-chain complexes); and
+     easy-multimercluster's two files on a 120-entry complex DB. The cpu
+     side runs in two spawned worker processes while the main process runs
+     the cuda side. Then mode 1 with the device gates on the card against
+     the host gates on the cpu, inside the band of phase 5.
+  9. easy-cluster with the defaults (cov 0.8, e 0.01, three cascade steps,
+     sensitivity 8, set cover, max-seqs 1000) on 20,000 synthetic
+     entries through cluster_db and the three writers: each
+     stage's seconds, the pairs of each align stage, the SW launches (more
+     than 0), the clusters, one upload of the DB's residues an align stage
+     (the lin stage's DB, then each cascade step's view), the peak memory
+     and the device's busy time by torch.profiler (CUDA activity alone).
+     Then easy-rbh --gpu 1 of the queries against those entries with the
+     card's default gates, counted: the rbh path; its re-align sorts by
+     structure bits, so past 8,192 pairs its gates must run as fleets.
+ 10. createclusearchdb from those clusters, then the queries with
+     --cluster-search 1 --gpu 1: the rep search, the expand and the member
+     re-align; both kernels must launch.
+ 11. multimersearch --gpu 1 + createmultimerreport with the card's default
+     gates, the target DB regrouped into two-chain complexes (fileids
+     i // 2) and the queries likewise: the stage seconds, the expanded
+     pairs, the assignments; both kernels must launch.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
@@ -117,6 +141,15 @@ FP32_PER_S = 67e12             # H100 SXM data sheet, outside the tensor cores
 TM_OPS_PER_CELL = 60
 LDDT_OPS_PER_PAIR = 30
 NO_LIBRARY = None              # no single PyTorch call computes these DPs
+# The parity phase compares the workflows of slice 5 on the --parity-targets
+# DB, but easy-multimercluster on a complex DB of MULTIMER_CLUSTER_ENTRIES
+# entries: every complex is searched against every other, and its cpu side
+# (the plain SW of every pair) took 20 s at 120 entries and 162 s at 240 on
+# an 8-core host (tools/torch_workflow_parity_seconds.py).
+MULTIMER_CLUSTER_ENTRIES = 120
+# entries phase 9 clusters: one organism's predicted structures (the AFDB
+# human proteome holds about 23,000 models)
+CLUSTER_ENTRIES = 20_000
 
 
 def log(msg: str) -> None:
@@ -695,36 +728,57 @@ STAGES = ("prefilter", "ungapped+gapped_prefilter", "sw_scoring", "host_loop",
           "gates_drain", "batch_recover", "tmalign", "lolalign")
 
 
-def counted_search(qdb, tdb, dev, mode, **kw):
-    """One search with every launch count set to 0 just before and read just
-    after: (results, lines, record of seconds, stages, launches, memory)."""
+def reset_counts(dev) -> None:
+    """Every launch count, the stage times and the peak memory to 0."""
     import torch
 
     from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
                                                 gapless_scores_dual)
     from foldseek_tpu_torch.ops.gates_device import GateFleet
     from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
-    from foldseek_tpu_torch.search import (reset_stage_times,
-                                           snapshot_stage_times)
+    from foldseek_tpu_torch.search import reset_stage_times
     reset_stage_times()
     torch.cuda.reset_peak_memory_stats(dev)
     gapless_scores_batch.launches = 0
     gapless_scores_dual.launches = 0
     sw_scores_pairs.launches = 0
     GateFleet.dispatches = 0
-    t0 = time.perf_counter()
-    res, lines = run_search(qdb, tdb, dev, mode, **kw)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+
+
+def read_counts(dev, stage_names, stage_prefix: str = "") -> dict:
+    """The launch counts, gate fleets, the stages named (or starting with
+    `stage_prefix`), the per-call counts (the pairs of each `align_all`
+    call, the entries of each device panel set made) and the peak memory
+    since reset_counts."""
+    import torch
+
+    from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
+                                                gapless_scores_dual)
+    from foldseek_tpu_torch.ops.gates_device import GateFleet
+    from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
+    from foldseek_tpu_torch.search import (snapshot_stage_counts,
+                                           snapshot_stage_times)
     stages = snapshot_stage_times()
-    rec = dict(
-        seconds=seconds, hits=len(lines), targets=tdb.size,
+    return dict(counts=snapshot_stage_counts(),
         launches=dict(gapless=gapless_scores_batch.launches,
                       gapless_dual=gapless_scores_dual.launches,
                       sw=sw_scores_pairs.launches),
         gate_fleets=GateFleet.dispatches,
-        stages={k: stages[k] for k in STAGES if k in stages},
+        stages={k: v for k, v in stages.items() if k in stage_names
+                or (stage_prefix and k.startswith(stage_prefix))},
         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def counted_search(qdb, tdb, dev, mode, **kw):
+    """One search with every launch count set to 0 just before and read just
+    after: (results, lines, record of seconds, stages, launches, memory)."""
+    import torch
+    reset_counts(dev)
+    t0 = time.perf_counter()
+    res, lines = run_search(qdb, tdb, dev, mode, **kw)
+    torch.cuda.synchronize()
+    rec = dict(seconds=time.perf_counter() - t0, hits=len(lines),
+               targets=tdb.size, **read_counts(dev, STAGES))
     check_lines(lines, qdb)
     return res, lines, rec
 
@@ -773,11 +827,11 @@ def phase_e2e(dev, tdb, qdb, mode, report, name=None, gates=""):
 
 def phase_gate_turns(dev, tdb, qdb, report):
     """Warm mode-1 searches with the host's gates and with the device fleets
-    in turns on the same card, ten pairs alternating which side runs first:
+    in turns on the same card, six pairs alternating which side runs first:
     the end-to-end side of the crossover."""
     import statistics
     turns = []
-    for gates in ("0", "1", "1", "0") * 5:
+    for gates in ("0", "1", "1", "0") * 3:
         with gates_env(gates):
             _res, _lines, rec = counted_search(qdb, tdb, dev, 1)
         turns.append(dict(gates="device" if gates == "1" else "host",
@@ -1142,32 +1196,424 @@ def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
     return total(records)
 
 
-def phase_parity(dev, pdb, qdb, report):
+# --- the workflows of slice 5: easy-cluster, cluster-search, rbh, multimer -----
+
+WORKFLOW_STAGES = ("prefilter", "sw_scoring", "host_loop", "gates_drain",
+                   "batch_recover", "search", "expand", "expandmultimer",
+                   "structurealign_expand", "scoremultimer")
+
+
+def device_busy_ms(prof):
+    """Milliseconds the card spent in kernels and copies in a profile taken
+    with the CUDA activity alone: the raw device events, each counted once,
+    launched by PyTorch or through ctypes (summing them skips the
+    profiler's per-operator tables, slow for the gate fleets' hundreds of
+    thousands of launches); None when it saw no device time."""
     import torch
-    cpu = torch.device("cpu")
-    exact = {"mode1": dict(mode=1), "mode3": dict(mode=3),
-             "mode0": dict(mode=0),
-             "iter2_mode1": dict(mode=1, iterations=2),
-             "tmalign": dict(mode=1, alignment_type=1),
-             "lolalign": dict(mode=1, alignment_type=3)}
-    with gates_env("0"):
-        for name, kw in exact.items():
-            t0 = time.perf_counter()
-            _, on_gpu = run_search(qdb, pdb, dev, **kw)
-            t1 = time.perf_counter()
-            res_cpu, on_cpu = run_search(qdb, pdb, cpu, **kw)
-            t2 = time.perf_counter()
-            same = on_gpu == on_cpu
-            log(f"parity {name}, {pdb.size} targets x {qdb.size} queries: "
-                f"{len(on_gpu)} m8 lines on cuda ({t1 - t0:.1f} s), "
-                f"{len(on_cpu)} on cpu ({t2 - t1:.1f} s), byte-identical: "
-                f"{same}")
-            report[f"parity_{name}"] = dict(lines=len(on_gpu), identical=same)
-            if not same or not on_gpu:
-                raise AssertionError(f"{name}: m8 on cuda differs from m8 on "
-                                     "cpu")
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda)
+    return ns / 1e6 or None
+
+
+def counted_run(dev, fn):
+    """fn() with the counts of counted_search set to 0 just before and read
+    just after, under torch.profiler with the CUDA activity alone: (fn's
+    result, record with the device's busy time and idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    reset_counts(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rec = read_counts(dev, WORKFLOW_STAGES, stage_prefix="cluster")
+    t1 = time.perf_counter()
+    busy = device_busy_ms(prof)
+    return out, dict(
+        seconds=seconds, device_busy_ms=busy,
+        profile_read_seconds=time.perf_counter() - t1,
+        device_idle_share=None if busy is None else 1 - busy / 1e3 / seconds,
+        **rec)
+
+
+def busy_text(rec) -> str:
+    if rec["device_busy_ms"] is None:
+        return "device busy time not measured (the profiler saw none)"
+    return (f"device busy {rec['device_busy_ms']:.1f} ms, idle share "
+            f"{rec['device_idle_share']:.4f}")
+
+
+def complex_db(db, path: str):
+    """A copy of `db` at `path` whose fileids group its entries two by two
+    (entries 2i and 2i + 1 are the chains of complex i): a data step of this
+    script, since synth_db writes one complex per entry."""
+    import shutil
+
+    import numpy as np
+
+    from foldseek_tpu_torch.db import load_db
+    shutil.copytree(db.path, path)
+    np.save(os.path.join(path, "fileids.npy"),
+            (np.arange(db.size) // 2).astype(np.uint32))
+    return load_db(path)
+
+
+def cluster_files(db, dev, prefix: str, tmp_dir: str):
+    """easy-cluster on a DB: cluster_db with the defaults, then the three
+    files; returns the clusters."""
+    from foldseek_tpu_torch.cluster import workflow as cwf
+    os.makedirs(tmp_dir, exist_ok=True)
+    clusters = cwf.cluster_db(db, cwf.ClusterParams(), dev, tmp_dir=tmp_dir)
+    cwf.write_cluster_tsv(db, clusters, prefix + "_cluster.tsv")
+    cwf.write_rep_fasta(db, clusters, prefix + "_rep_seq.fasta")
+    cwf.write_all_seqs_fasta(db, clusters, prefix + "_all_seqs.fasta")
+    return clusters
+
+
+def clusearch_lines(qdb, path: str, dev, tmp_dir: str):
+    """`search --cluster-search 1 --gpu 1` of qdb against the triple at
+    `path`, formatted as m8 against its `_seq` DB: (results, lines)."""
+    from foldseek_tpu_torch.db import load_db
+    from foldseek_tpu_torch.search import SearchParams, format_results, search
+    params = SearchParams(prefilter_mode=1, cluster_search=1)
+    res = search(qdb, load_db(path), params, dev, same_db=False,
+                 tmp_dir=tmp_dir)
+    return res, format_results(qdb, load_db(path + "_seq"), res,
+                               params.format_output)
+
+
+def multimer_report(qdb, tdb, dev):
+    """multimersearch --gpu 1 then createmultimerreport: (score lines,
+    report lines)."""
+    from foldseek_tpu_torch.multimer.report import create_multimer_report
+    from foldseek_tpu_torch.multimer.workflow import multimer_search
+    from foldseek_tpu_torch.search import SearchParams
+    lines = multimer_search(qdb, tdb, SearchParams(prefilter_mode=1), dev)
+    return lines, create_multimer_report(qdb, tdb, lines)
+
+
+def check_clusters(db, clusters, prefix: str) -> None:
+    """Every entry is the member of exactly one cluster, each cluster lists
+    its representative first, and the files hold one line per entry and two
+    per representative."""
+    members = sorted(m for ms in clusters.values() for m in ms)
+    if members != sorted(int(k) for k in db.keys) or any(
+            ms[0] != r for r, ms in clusters.items()):
+        raise AssertionError("easy-cluster: clusters do not partition the DB")
+    with open(prefix + "_cluster.tsv") as f:
+        tsv = f.read().splitlines()
+    with open(prefix + "_rep_seq.fasta") as f:
+        fasta = f.read().splitlines()
+    if len(tsv) != db.size or len(fasta) != 2 * len(clusters):
+        raise AssertionError("easy-cluster: wrong number of output lines")
+
+
+def phase_cluster(dev, base, work, n_entries, report):
+    """9. easy-cluster with the defaults (cov 0.8, e 0.01, three cascade
+    steps, sensitivity 8, set cover, max-seqs 1000) on `n_entries`
+    synthetic entries: the seconds of each stage, the pairs of each align
+    stage, the SW launches and the clusters."""
+    from foldseek_tpu_torch.db import synth_db
+    db = synth_db(base, n_entries, os.path.join(work, "cluster_db"), seed=2)
+    prefix = os.path.join(work, "clu")
+    clusters, rec = counted_run(dev, lambda: cluster_files(
+        db, dev, prefix, os.path.join(work, "clu_tmp")))
+    check_clusters(db, clusters, prefix)
+    pairs = rec["counts"].get("align_pairs", [])
+    sets = rec["counts"].get("panel_set_entries", [])
+    rec.update(entries=db.size, clusters=len(clusters),
+               largest_cluster=max(len(m) for m in clusters.values()))
+    log(f"cluster {db.size} entries: {rec['seconds']:.3f} s, "
+        f"{len(clusters)} clusters (largest {rec['largest_cluster']}), pairs "
+        f"per align stage {pairs}, device residues uploaded for DBs of "
+        f"{sets} entries, stages {rec['stages']}, launches "
+        f"{rec['launches']}, gate fleets {rec['gate_fleets']}, "
+        f"max_memory_allocated {rec['max_memory_allocated']} B, "
+        f"{busy_text(rec)}")
+    if not rec["launches"]["sw"]:
+        raise AssertionError("cluster: the SW kernel never launched")
+    if len(pairs) != 4 or len(sets) != sum(1 for n in pairs if n):
+        raise AssertionError("cluster: not four align stages, or one uploaded "
+                             f"its DB more than once: {pairs}, {sets}")
+    report["cluster"] = rec
+    return db, clusters, rec["launches"]
+
+
+def phase_clusearch(dev, db, clusters, qdb, work, report):
+    """10. createclusearchdb from phase 9's clusters, then the queries with
+    --cluster-search 1 --gpu 1: both kernels must launch."""
+    from foldseek_tpu_torch.search.clusearch import create_clusearch_db
+    path = os.path.join(work, "clusearch")
+    t0 = time.perf_counter()
+    create_clusearch_db(db, clusters, path)
+    create_s = time.perf_counter() - t0
+    (_res, lines), rec = counted_run(dev, lambda: clusearch_lines(
+        qdb, path, dev, os.path.join(work, "clusearch_tmp")))
+    check_lines(lines, qdb)
+    rec.update(createclusearchdb_seconds=create_s, representatives=len(clusters),
+               hits=len(lines))
+    log(f"cluster-search {qdb.size} queries x {len(clusters)} representatives "
+        f"of {db.size} entries: createclusearchdb {create_s:.3f} s, search "
+        f"{rec['seconds']:.3f} s, {len(lines)} hits, stages {rec['stages']}, "
+        f"launches {rec['launches']}, gate fleets {rec['gate_fleets']}, "
+        f"{busy_text(rec)}")
+    if not (rec["launches"]["gapless"] and rec["launches"]["sw"]):
+        raise AssertionError(f"cluster-search: wrong kernels launched: "
+                             f"{rec['launches']}")
+    report["clusearch"] = rec
+    return rec["launches"]
+
+
+def check_report(report_lines, qdb) -> None:
+    """Every query complex has an assignment; the report's columns parse and
+    the TM-scores lie in [0, 1]. (A synthetic entry's name has no chain
+    suffix, so the report names a complex by its first chain.)"""
+    complex_of = {qdb.names[i]: int(qdb.fileids[i]) for i in range(qdb.size)}
+    seen = set()
+    for line in report_lines:
+        f = line.split("\t")
+        if len(f) != 14 or not all(0.0 <= float(x) <= 1.0 for x in f[4:6]):
+            raise AssertionError(f"malformed report line: {line!r}")
+        seen.add(complex_of[f[0]])
+    if seen != set(complex_of.values()):
+        raise AssertionError(f"{len(set(complex_of.values()) - seen)} query "
+                             "complexes without an assignment")
+
+
+def phase_multimer(dev, tdb, qdb, work, report):
+    """11. multimersearch --gpu 1 + createmultimerreport with the card's
+    default gates: the target DB regrouped into two-chain complexes, the
+    queries likewise."""
+    t0 = time.perf_counter()
+    tm = complex_db(tdb, os.path.join(work, "multimer_targets"))
+    qm = complex_db(qdb, os.path.join(work, "multimer_queries"))
+    copy_s = time.perf_counter() - t0
+    with gates_env(""):
+        (lines, rep), rec = counted_run(dev, lambda: multimer_report(
+            qm, tm, dev))
+    check_report(rep, qm)
+    # align_all calls: the chain search's, then the expand re-align's
+    pairs = rec["counts"].get("align_pairs", [])
+    rec.update(copy_seconds=copy_s, target_complexes=tdb.size // 2,
+               query_complexes=qdb.size // 2,
+               expanded_pairs=pairs[-1] if pairs else 0,
+               score_lines=sum(len(v) for v in lines.values()),
+               assignments=len(rep))
+    log(f"multimer {qm.size // 2} query complexes x {tm.size // 2} target "
+        f"complexes: {rec['seconds']:.3f} s, {len(rep)} assignments, pairs "
+        f"of the chain search and the expand re-align {pairs}, stages "
+        f"{rec['stages']}, launches {rec['launches']}, gate fleets "
+        f"{rec['gate_fleets']}, max_memory_allocated "
+        f"{rec['max_memory_allocated']} B, {busy_text(rec)}")
+    if not (rec["launches"]["gapless"] and rec["launches"]["sw"]):
+        raise AssertionError(f"multimer: wrong kernels launched: "
+                             f"{rec['launches']}")
+    report["multimer"] = rec
+    return rec["launches"]
+
+
+def phase_rbh(dev, tdb, qdb, work, report):
+    """easy-rbh --gpu 1 of the queries against phase 9's DB with the card's
+    default gates: both searches and the re-align, counted as the other
+    paths are. The re-align sorts by structure bits, so from
+    DEVICE_GATES_MIN_PAIRS pairs on its gates must run as fleets."""
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search.align import DEVICE_GATES_MIN_PAIRS
+    from foldseek_tpu_torch.search.rbh import easy_rbh
+    with gates_env(""):
+        lines, rec = counted_run(dev, lambda: easy_rbh(
+            qdb.path, tdb.path, os.path.join(work, "rbh.m8"),
+            os.path.join(work, "rbh_tmp"), SearchParams(prefilter_mode=1),
+            dev))
+    # align_all calls: A against B, B against A, the re-align
+    pairs = rec["counts"].get("align_pairs", [])
+    rec.update(hits=len(lines), targets=tdb.size,
+               realigned_pairs=pairs[-1] if pairs else 0)
+    log(f"rbh {qdb.size} queries x {tdb.size} targets: {rec['seconds']:.3f} s, "
+        f"{len(lines)} reciprocal best hits, pairs of the two searches and "
+        f"the re-align {pairs}, stages {rec['stages']}, launches "
+        f"{rec['launches']}, gate fleets {rec['gate_fleets']}, "
+        f"max_memory_allocated {rec['max_memory_allocated']} B, "
+        f"{busy_text(rec)}")
+    if not (lines and rec["launches"]["gapless"] and rec["launches"]["sw"]):
+        raise AssertionError(f"rbh: no hits or wrong kernels launched: "
+                             f"{rec['launches']}")
+    if len(pairs) != 3 or (rec["realigned_pairs"] >= DEVICE_GATES_MIN_PAIRS
+                           and not rec["gate_fleets"]):
+        raise AssertionError(f"rbh: pairs of its align calls {pairs}: not "
+                             "three calls, or a re-align past "
+                             f"{DEVICE_GATES_MIN_PAIRS} pairs ran no gate "
+                             "fleet")
+    report["rbh"] = rec
+    return rec["launches"]
+
+
+# Phase 7's comparisons, cuda against cpu. Each group is run by one process
+# on one device, and the groups stand in the order of their cpu seconds at
+# 2,000 entries (easy-cluster and cluster-search about 100 s, rbh 90,
+# multimer 75, two iterations 49, the rest 9-27) so that the worker
+# processes of the cpu side end together.
+PARITY_SEARCHES = {"mode1": dict(mode=1), "mode3": dict(mode=3),
+                   "mode0": dict(mode=0),
+                   "iter2_mode1": dict(mode=1, iterations=2),
+                   "tmalign": dict(mode=1, alignment_type=1),
+                   "lolalign": dict(mode=1, alignment_type=3)}
+PARITY_GROUPS = (("easy_cluster", "clusearch"), ("rbh",), ("multimer",),
+                 ("iter2_mode1",), ("lolalign",), ("multimercluster",),
+                 ("tmalign",), ("mode0",), ("mode1",), ("mode3",))
+# worker processes of the cpu side: the plain versions keep about half of
+# the host's cores busy, so two of them beside the cuda side fill it
+PARITY_CPU_WORKERS = 2
+
+
+def parity_inputs(base, pdb, qdb, work) -> dict:
+    """The DBs of phase 7 on disk, by name: the queries, the parity DB,
+    both regrouped into two-chain complexes, and easy-multimercluster's
+    complex DB; "out" is the directory the workflows write to."""
+    from foldseek_tpu_torch.db import synth_db
+    d = os.path.join(work, "parity_inputs")
+    paths = dict(out=os.path.join(work, "parity_outputs"), queries=qdb.path,
+                 parity=pdb.path,
+                 complex_targets=os.path.join(d, "complex_targets"),
+                 complex_queries=os.path.join(d, "complex_queries"),
+                 mmclu=os.path.join(d, "mmclu"))
+    complex_db(pdb, paths["complex_targets"])
+    complex_db(qdb, paths["complex_queries"])
+    complex_db(synth_db(base, MULTIMER_CLUSTER_ENTRIES,
+                        os.path.join(d, "mmclu_src"), seed=3), paths["mmclu"])
+    return paths
+
+
+def parity_worker_init(threads: int) -> None:
+    """A cpu-side worker: its k-mer prefilter runs its queries one after the
+    other, as it does in the main process once CUDA is up, and its plain
+    versions share the cores with the other worker."""
+    import torch
+    os.environ["FOLDSEEK_TPU_FORK"] = "0"
+    torch.set_num_threads(threads)
+
+
+def parity_side(group, paths: dict, device):
+    """One side of a group of phase 7's comparisons on `device` (a torch
+    device or its name): ({name: (outputs as bytes, seconds)}, mode 1's
+    results when the group holds it). At module level, so that a worker
+    process runs the cpu side while the main process runs the cuda side."""
+    import torch
+
+    from foldseek_tpu_torch.db import load_db
+    from foldseek_tpu_torch.multimer.cluster import easy_multimer_cluster
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search.clusearch import create_clusearch_db
+    from foldseek_tpu_torch.search.rbh import easy_rbh
+    dev = torch.device(device)
+    d = os.path.join(paths["out"], dev.type)
+    os.makedirs(d, exist_ok=True)
+    qdb = load_db(paths["queries"])
+
+    def files(prefix, suffixes):
+        out = []
+        for suffix in suffixes:
+            with open(prefix + suffix, "rb") as f:
+                out.append(f.read())
+        return out
+
+    def text(lines):
+        return ("\n".join(lines) + "\n").encode()
+
+    out, res_mode1, clusters = {}, None, None
+    for name in group:
+        t0 = time.perf_counter()
+        if name in PARITY_SEARCHES:
+            res, lines = run_search(qdb, load_db(paths["parity"]), dev,
+                                    **PARITY_SEARCHES[name])
+            outputs = [text(lines)]
             if name == "mode1":
-                host_cpu = res_cpu
+                res_mode1 = res
+        elif name == "easy_cluster":
+            prefix = os.path.join(d, "clu")
+            clusters = cluster_files(load_db(paths["parity"]), dev, prefix,
+                                     os.path.join(d, "clu_tmp"))
+            outputs = files(prefix, ("_cluster.tsv", "_rep_seq.fasta",
+                                     "_all_seqs.fasta"))
+        elif name == "clusearch":
+            path = os.path.join(d, "clusearch")
+            create_clusearch_db(load_db(paths["parity"]), clusters, path)
+            outputs = [text(clusearch_lines(qdb, path, dev, os.path.join(
+                d, "clusearch_tmp"))[1])]
+        elif name == "rbh":
+            outputs = [text(easy_rbh(paths["queries"], paths["parity"],
+                                     os.path.join(d, "rbh.m8"),
+                                     os.path.join(d, "rbh_tmp"),
+                                     SearchParams(prefilter_mode=1), dev))]
+        elif name == "multimer":
+            lines, rep = multimer_report(load_db(paths["complex_queries"]),
+                                         load_db(paths["complex_targets"]),
+                                         dev)
+            outputs = [text(f"{q}\t{ln}" for q in sorted(lines)
+                            for ln in lines[q]), text(rep)]
+        else:   # multimercluster
+            prefix = os.path.join(d, "mmclu")
+            easy_multimer_cluster(paths["mmclu"], prefix,
+                                  os.path.join(d, "mmclu_tmp"),
+                                  SearchParams(), dev)
+            outputs = files(prefix, ("_cluster.tsv", "_rep_seq.fasta"))
+        out[name] = (outputs, time.perf_counter() - t0)
+    return out, res_mode1
+
+
+def phase_parity(dev, base, pdb, qdb, work, report):
+    """7. parity, cuda against cpu, byte for byte, with the host's gates on
+    both sides, on the parity DB: the m8 lines of PARITY_SEARCHES,
+    easy-cluster's three files and the cluster-search m8 over those
+    clusters, the easy-rbh m8 (--gpu 1), the multimer score lines and report
+    (complexes of two entries); easy-multimercluster's two files on a
+    smaller complex DB. The
+    cpu side runs in PARITY_CPU_WORKERS spawned processes while this one
+    runs the cuda side. Then mode 1 with the device gates on the card
+    against the host gates on the cpu, inside the band of phase 5."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from foldseek_tpu_torch.db import load_db
+    paths = parity_inputs(base, pdb, qdb, work)
+    entries = {name: pdb.size for g in PARITY_GROUPS for name in g}
+    entries["multimercluster"] = load_db(paths["mmclu"]).size
+    threads = max(1, (os.cpu_count() or 2) // PARITY_CPU_WORKERS)
+    pool = ProcessPoolExecutor(
+        PARITY_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=parity_worker_init, initargs=(threads,))
+    t0 = time.perf_counter()
+    try:
+        with gates_env("0"):
+            on_cpu = [pool.submit(parity_side, g, paths, "cpu")
+                      for g in PARITY_GROUPS]
+            on_gpu = [parity_side(g, paths, dev) for g in PARITY_GROUPS]
+            cuda_seconds = time.perf_counter() - t0
+            on_cpu = [f.result() for f in on_cpu]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    report["parity_seconds"] = dict(cuda_side=cuda_seconds,
+                                    both=time.perf_counter() - t0)
+    log(f"parity: cuda side {cuda_seconds:.1f} s, both sides "
+        f"{report['parity_seconds']['both']:.1f} s ({PARITY_CPU_WORKERS} "
+        "cpu workers)")
+    host_cpu = next(res for _, res in on_cpu if res is not None)
+    for (gpu, _), (cpu, _) in zip(on_gpu, on_cpu):
+        for name, (got, cuda_s) in gpu.items():
+            want, cpu_s = cpu[name]
+            same = got == want
+            lines = sum(b.count(b"\n") for b in got)
+            log(f"parity {name}, {entries[name]} entries x {qdb.size} "
+                f"queries: {lines} lines in {len(got)} outputs, cuda "
+                f"{cuda_s:.1f} s, cpu {cpu_s:.1f} s, byte-identical: {same}")
+            report[f"parity_{name}"] = dict(
+                entries=entries[name], lines=lines, identical=same,
+                cuda_seconds=cuda_s, cpu_seconds=cpu_s)
+            if not same or not all(b.strip() for b in got):
+                raise AssertionError(f"{name}: the output on cuda differs "
+                                     "from the output on cpu, or is empty")
     with gates_env("1"):
         res_gpu, _ = run_search(qdb, pdb, dev, mode=1)
     report["parity_mode1_device_gates"] = compare_gates(
@@ -1359,8 +1805,8 @@ def main() -> int:
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
-        _base, tdb, qdb, pdb = build_dbs(work, args.targets, args.queries,
-                                         args.parity_targets)
+        base, tdb, qdb, pdb = build_dbs(work, args.targets, args.queries,
+                                        args.parity_targets)
         pieces = panel_pieces(tdb, dev)
         panels = resident_panels(tdb, dev)
         g = phase_gapless(card, dev, tdb, qdb, pieces, report)
@@ -1392,7 +1838,14 @@ def main() -> int:
         mode3, _ = phase_e2e(dev, tdb, qdb, 3, report)
         s3 = phase_mode3_kernel(card, dev, tdb, qdb,
                                 resident_panels(tdb, dev), report)
-        phase_parity(dev, pdb, qdb, report)
+        phase_parity(dev, base, pdb, qdb, work, report)
+        clu_db, clusters, paths["cluster"] = phase_cluster(
+            dev, base, work, CLUSTER_ENTRIES, report)
+        paths["rbh"] = phase_rbh(dev, clu_db, qdb, work, report)
+        paths["clusearch"] = phase_clusearch(dev, clu_db, clusters, qdb, work,
+                                             report)
+        del clu_db, clusters
+        paths["multimer"] = phase_multimer(dev, tdb, qdb, work, report)
         phase_boundaries(dev, report)
     loaded = sorted(k for k in sys.modules if k in ("jax", "foldseek_tpu")
                     or k.startswith(("jax.", "foldseek_tpu.")))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..device import panel_budget
-from ..utils.log import logger
+from ..utils.log import logger, record_count
 
 PAD_LETTER = 21
 ROW_MULTIPLE = 128
@@ -145,6 +145,7 @@ class TorchPanelSet:
     C-alpha coordinates."""
 
     def __init__(self, db, device, budget_bytes: Optional[int] = None):
+        record_count("panel_set_entries", db.size)
         self.db = db
         self.device = torch.device(device)
         self.n_entries = db.size

@@ -39,7 +39,7 @@ from ..ops.matrices import blosum62, mat3di
 from ..ops.sw import QueryProfile
 from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
 from ..utils.hostpar import map_queries
-from ..utils.log import StageTimer, logger, record_stage
+from ..utils.log import StageTimer, logger, record_count, record_stage
 from .params import INT_MAX, SearchParams, can_be_covered_mask, has_coverage
 from .results import AlnResult, compare_hits, compare_hits_by_structure_bits
 
@@ -130,6 +130,7 @@ def align_all(qdb: StructDB, tdb: StructDB,
     search).
     Returns query key -> sorted AlnResult list."""
     device = torch.device(device)
+    record_count("align_pairs", sum(len(v) for v in prefilter.values()))
     ev = EvalueComputer(tdb.total_residues)
     tkey_to_idx = tdb.key_to_index()
     qkey_to_idx = qdb.key_to_index()

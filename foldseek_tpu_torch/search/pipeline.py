@@ -41,9 +41,9 @@ def ensure_db(path_or_input: str, tmp_dir: str, tag: str) -> StructDB:
 
 def check_supported(params: SearchParams) -> None:
     """Raise NotImplementedError for what this port does not cover yet."""
-    if params.cluster_search:
+    if params.index_server:
         raise NotImplementedError(
-            "--cluster-search is not ported yet (ROADMAP queue 1, item 14)")
+            "--index-server is not ported yet (ROADMAP queue 1, item 15)")
 
 
 def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
@@ -53,6 +53,24 @@ def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
     if same_db is None:
         same_db = qdb.path == tdb.path
     cache = make_cache(tmp_dir, params, qdb, tdb)
+    if params.cluster_search:
+        # search representatives, expand hits to cluster members, re-align
+        # against the full _seq DB (data/structuresearch.sh:125-140)
+        from .clusearch import expand_hits, load_clusearch
+        loaded = load_clusearch(tdb.path)
+        if loaded is None:
+            raise ValueError(
+                f"--cluster-search requires {tdb.path}_seq and "
+                f"{tdb.path}_clu.tsv (run createclusearchdb)")
+        rep_db, seq_db, clu_map = loaded
+        with Timer("cluster-search rep search"):
+            first = search(qdb, rep_db, replace(params, cluster_search=0),
+                           device, same_db=False, tmp_dir=tmp_dir)
+        with Timer("expand(cluster-search)"):
+            expanded = expand_hits(first, clu_map)
+        with Timer("cluster-search member align"):
+            return _align_stage(qdb, seq_db, expanded, params, device,
+                                same_db=False, cache=cache)
     if params.prefilter_mode == PREF_MODE_UNGAPPED_AND_GAPPED:
         # alignment-format results straight from the prefilter pass
         # (ungappedprefilter.cpp:274-291): no align stage

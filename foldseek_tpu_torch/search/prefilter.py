@@ -8,7 +8,8 @@
 * EXHAUSTIVE (mode 2 or --exhaustive-search) — every query paired with every
   target in key order.
 Mode 3 (ungapped + gapped, results without the align stage) is dispatched by
-`search/pipeline.py` before this stage. The index server is not ported.
+`search/pipeline.py` before this stage. The index server is not ported
+(`check_supported` in `search/pipeline.py` refuses it).
 """
 from __future__ import annotations
 
@@ -27,9 +28,6 @@ def exhaustive_prefilter(qdb: StructDB, tdb: StructDB) -> Dict[int, List[int]]:
 
 def run_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
                   device: torch.device) -> Dict[int, List[int]]:
-    if params.index_server:
-        raise NotImplementedError(
-            "--index-server is not ported yet (ROADMAP queue 1, item 15)")
     if params.exhaustive_search or params.prefilter_mode == PREF_MODE_EXHAUSTIVE:
         return exhaustive_prefilter(qdb, tdb)
     if params.prefilter_mode == PREF_MODE_UNGAPPED:

@@ -44,6 +44,10 @@ class Timer:
 # (lib/mmseqs/src/commons/Application.cpp:44-49); this keeps them
 # machine-readable. reset_stage_times() starts a fresh attribution window.
 STAGE_TIMES: dict = {}
+# Beside it, what each stage worked on: record_count() appends one number a
+# call under its label (the pairs an `align_all` call scored, the entries of
+# each device panel set made), in call order.
+STAGE_COUNTS: dict = {}
 _stage_lock = threading.Lock()
 
 
@@ -55,14 +59,25 @@ def record_stage(label: str, seconds: float):
         STAGE_TIMES[key] = STAGE_TIMES.get(key, 0.0) + float(seconds)
 
 
+def record_count(label: str, n: int):
+    with _stage_lock:
+        STAGE_COUNTS.setdefault(label, []).append(int(n))
+
+
 def reset_stage_times():
     with _stage_lock:
         STAGE_TIMES.clear()
+        STAGE_COUNTS.clear()
 
 
 def snapshot_stage_times() -> dict:
     with _stage_lock:
         return {k: round(v, 4) for k, v in STAGE_TIMES.items()}
+
+
+def snapshot_stage_counts() -> dict:
+    with _stage_lock:
+        return {k: list(v) for k, v in STAGE_COUNTS.items()}
 
 
 class StageTimer:

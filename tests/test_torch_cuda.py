@@ -484,3 +484,47 @@ def test_pssm_call_shapes_on_card(cuda, tmp_path):
     for g, w in zip(got, run(cpu)):
         assert torch.equal(g.cpu(), w)
     assert int(got[0].max()) > 50
+
+
+# --- the cluster, rbh and multimer workflows on the card -----------------------
+
+def test_cluster_db_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """`cluster_db` (linclust stage and the three-step cascade) on cuda
+    equals the same on cpu; its align stages launch the SW kernel. The
+    cluster's align runs without TM/LDDT gates, so the results are exact."""
+    from foldseek_tpu_torch.cluster.workflow import ClusterParams, cluster_db
+    tdb, _ = _fixture_dbs(tmp_path, 300, 1)
+    before = tk.sw_scores_pairs.launches
+    got = cluster_db(tdb, ClusterParams(), cuda)
+    torch.cuda.synchronize()
+    assert tk.sw_scores_pairs.launches > before
+    assert got == cluster_db(tdb, ClusterParams(), torch.device("cpu"))
+    assert 1 < len(got) < tdb.size
+
+
+def test_rbh_and_multimer_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """rbh lines and multimer scorecomplex lines on cuda equal those on cpu
+    (--gpu 1, TM/LDDT gates forced to the host on both sides)."""
+    from foldseek_tpu_torch.multimer.workflow import multimer_search
+    from foldseek_tpu_torch.search import SearchParams, format_results
+    from foldseek_tpu_torch.search.rbh import rbh
+    from foldseek_tpu_torch.db import load_db
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    tdb, qdb = _fixture_dbs(tmp_path, 400, 6)
+    for d in (tdb, qdb):   # two-chain complexes, grouped by fileids
+        np.save(f"{d.path}/fileids.npy",
+                (np.arange(d.size) // 2).astype(np.uint32))
+    tdb, qdb = load_db(tdb.path), load_db(qdb.path)
+    params = SearchParams(prefilter_mode=1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = (tg.gapless_scores_batch.launches, tk.sw_scores_pairs.launches)
+        res = rbh(qdb, tdb, params, dev)
+        out[dev.type, "rbh"] = format_results(qdb, tdb, res,
+                                              params.format_output)
+        out[dev.type, "multimer"] = multimer_search(qdb, tdb, params, dev)
+        after = (tg.gapless_scores_batch.launches, tk.sw_scores_pairs.launches)
+        assert all(a > b for a, b in zip(after, before)) == (dev.type == "cuda")
+    assert out["cuda", "rbh"] == out["cpu", "rbh"] and out["cpu", "rbh"]
+    assert out["cuda", "multimer"] == out["cpu", "multimer"]
+    assert sum(len(v) for v in out["cpu", "multimer"].values()) >= qdb.size

@@ -509,11 +509,11 @@ def test_get_device():
     dict(prefilter_mode=0), dict(cluster_search=1),
     dict(num_iterations=2), dict(alignment_type=1), dict(alignment_type=3),
     dict(index_server="index.sock"), "device_gates"])
-def test_unported_modes_raise(dbs, change, monkeypatch):
+def test_unported_modes_raise(dbs, change, monkeypatch, tmp_path):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item (--cluster-search, --index-server); the modes ported since (the
-    k-mer prefilter, iterative search, alignment types 1 and 3, the device
-    gates) run and return hits."""
+    item (--index-server); the modes ported since (the k-mer prefilter,
+    --cluster-search over a createclusearchdb triple, iterative search,
+    alignment types 1 and 3, the device gates) run and return hits."""
     tdb, qdb = dbs[1].tdb, dbs[1].qdb
     params = replace(SearchParams(**GPU_KW), max_seqs=20)
     monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")   # a JAX client lives here
@@ -521,11 +521,16 @@ def test_unported_modes_raise(dbs, change, monkeypatch):
         monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
     else:
         params = replace(params, **change)
-    if change != "device_gates" and (
-            "cluster_search" in change or "index_server" in change):
+    if change != "device_gates" and "index_server" in change:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.search(qdb, tdb, params, CPU, same_db=False)
         return
+    if change != "device_gates" and "cluster_search" in change:
+        from foldseek_tpu_torch.search.clusearch import create_clusearch_db
+        keys = [int(k) for k in tdb.keys]
+        tdb = create_clusearch_db(
+            tdb, {keys[i]: keys[i:i + 4] for i in range(0, len(keys), 4)},
+            str(tmp_path / "clu"))
     tpipe.check_supported(params)
     if change != "device_gates" and "num_iterations" in change:
         res = tpipe.iterative_search(qdb, tdb, params, 2, CPU, same_db=False)
