@@ -51,11 +51,11 @@ Phases (any failure exits nonzero and prints no result line):
   7. parity: on a 2000-target DB the m8 lines on cuda equal those on cpu,
      byte for byte, for mode 1 with host gates, mode 3, mode 0, two
      iterations and alignment types 1 and 3. With the host's gates, also
-     byte for byte on that DB: easy-cluster's three files (the 2000
-     clustered), the cluster-search m8 over those clusters, the easy-rbh m8
-     (the queries against the 2000, --gpu 1), the multimer score lines and
-     report (both DBs regrouped into two-chain complexes); and
-     easy-multimercluster's two files on a 120-entry complex DB. The cpu
+     byte for byte on a 1,000-entry DB: easy-cluster's three files (the
+     1,000 clustered), the cluster-search m8 over those clusters, the
+     easy-rbh m8 (the queries against the 1,000, --gpu 1), the multimer
+     score lines and report (both DBs regrouped into two-chain complexes);
+     and easy-multimercluster's two files on a 120-entry complex DB. The cpu
      side runs in two spawned worker processes while the main process runs
      the cuda side. Then mode 1 with the device gates on the card against
      the host gates on the cpu, inside the band of phase 5.
@@ -76,16 +76,30 @@ Phases (any failure exits nonzero and prints no result line):
      gates, the target DB regrouped into two-chain complexes (fileids
      i // 2) and the queries likewise: the stage seconds, the expanded
      pairs, the assignments; both kernels must launch.
+ 12. the DB, stage and output verbs and the index server, over a copy of
+     the target DB indexed by `createindex` (timed): the prefilter over the
+     index's panels equals the one over built panels, and a cold mode-1
+     search over it gives phase 5's m8 (host gates); `serve` on the card in
+     a thread of this script (its gapless launches counted) answers `ping`
+     and `query_batch` as the in-process prefilter does, its round trip
+     timed beside the in-process call; `search --gpu 1 -a` of the unindexed
+     target DB in fresh processes without, with, with and without
+     --index-server (the server holds the indexed copy), each printed
+     by `convertalis` to phase 5's m8 byte for byte, each process's wall
+     recorded; ungappedprefilter (its lines equal the server's hits),
+     structurealign -a over a served search's result, samplemulambda (both
+     SW launches counted) and aln2tmscore through the command line on the
+     card. Phase 7 compares the same verbs on the parity DB, cuda against
+     cpu: ungappedprefilter, `search --gpu 1 --max-seqs 50`, structurealign
+     -a over it, samplemulambda, convertalis in format modes 0-5, and a
+     `search --index-server` through a server on each side's device.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
      1,500-row slot, targets of length 1 and of the panel's full padded
      length, a stack whose caps force the 32-bit gapless instance.
-Beside every kernel time stands the time of the kernel it replaced
-(csrc/*_v1.cu, which only this script loads), taken in the same run in
-turns: old, new, new, old. ptxas's registers, shared memory and spills of
-every instance are copied from the nvcc logs; a spill in a current kernel
-fails the run.
+ptxas's registers, shared memory and spills of every instance are copied
+from the nvcc logs; a spill fails the run.
 The line before the card's line is a JSON object with each kernel's
 launches, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Details go to DIR/chip_smoke.json and DIR/nvcc_*.log (default
@@ -172,101 +186,6 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def turns_ms(old, new, reps: int = 1):
-    """(old ms, new ms) of two versions timed in turns on the same card:
-    old, new, new, old; each figure is the mean of its two turns."""
-    a = cuda_ms(old, reps)
-    b = cuda_ms(new, reps)
-    c = cuda_ms(new, reps)
-    d = cuda_ms(old, reps)
-    return (a + d) / 2, (b + c) / 2
-
-
-# --- the kernels of the version before (csrc/*_v1.cu), for timing only --------
-
-def _v1_lib(name: str):
-    import ctypes
-
-    from foldseek_tpu_torch.ops import _build
-    lib = _build.load(name + "_v1").lib
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "gapless" and lib.gapless_scores.argtypes is None:
-        lib.gapless_scores.argtypes = [p, p, p, i, p, i, i, ll, p, p]
-        lib.gapless_scores_dual.argtypes = [p, p, p, i, p, p, i, i, ll, ll,
-                                            p, p]
-    if name == "sw" and lib.sw_scores.argtypes is None:
-        lib.sw_scores.argtypes = [i, i, p, p, p, ll, p, p, p, p, p, p, p, p,
-                                  p, p, i, i, p, p, p]
-    return lib
-
-
-def _stream(dev):
-    import torch
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def v1_gapless(prof, q_off, caps, t_T):
-    import torch
-    q, (Lt, B) = q_off.numel() - 1, t_T.shape
-    out = torch.empty((q, B), dtype=torch.int32, device=t_T.device)
-    rc = _v1_lib("gapless").gapless_scores(
-        prof.data_ptr(), q_off.data_ptr(), caps.data_ptr(), q, t_T.data_ptr(),
-        Lt, B, t_T.stride(0), out.data_ptr(), _stream(t_T.device))
-    if rc != 0:
-        raise RuntimeError(f"v1 gapless kernel: CUDA error {rc}")
-    return out
-
-
-def v1_gapless_dual(prof_aa, prof_ss, q_off, t_aa_T, t_ss_T):
-    import torch
-    q, (Lt, B) = q_off.numel() - 1, t_aa_T.shape
-    out = torch.empty((q, B), dtype=torch.int32, device=t_aa_T.device)
-    rc = _v1_lib("gapless").gapless_scores_dual(
-        prof_aa.data_ptr(), prof_ss.data_ptr(), q_off.data_ptr(), q,
-        t_aa_T.data_ptr(), t_ss_T.data_ptr(), Lt, B, t_aa_T.stride(0),
-        t_ss_T.stride(0), out.data_ptr(), _stream(t_aa_T.device))
-    if rc != 0:
-        raise RuntimeError(f"v1 dual gapless kernel: CUDA error {rc}")
-    return out
-
-
-def v1_sw(prof_aa, prof_ss, slot_off, pair_start, res_aa, res_ss, pair_toff,
-          pair_tlen, gap_open=10, gap_extend=1):
-    """The earlier SW kernel behind its earlier wrapper: one warp a pair,
-    the block table and the scratch offsets built on the host."""
-    import torch
-    dev = res_aa.device
-    so, ps, toff, tlen = (torch.as_tensor(x).to("cpu", torch.long)
-                          for x in (slot_off, pair_start, pair_toff, pair_tlen))
-    S, lens, counts = so.numel() - 1, so.diff(), ps.diff()
-    P = int(ps[-1])
-    out = [torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3)]
-    R = min(8, max(1, -(-int(lens.max()) // 32)))
-    nblk_slot = -(-counts // 4)
-    blk_slot = torch.repeat_interleave(torch.arange(S), nblk_slot)
-    first_blk = torch.cumsum(nblk_slot, 0) - nblk_slot
-    blk_p0 = ps[blk_slot] + 4 * (torch.arange(blk_slot.numel())
-                                 - first_blk[blk_slot])
-    pair_slot = torch.repeat_interleave(torch.arange(S), counts)
-    scr_len = torch.where((lens > 32 * R)[pair_slot], 4 * tlen, 0)
-    pair_scr = torch.cumsum(scr_len, 0) - scr_len
-    scratch = torch.empty(max(1, int(scr_len.sum())), dtype=torch.int32,
-                          device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    plan = [so.to(**i32), blk_slot.to(**i32), blk_p0.to(**i32),
-            ps[blk_slot + 1].to(**i32)]
-    pairs = [toff.to(dev), tlen.to(**i32), pair_scr.to(dev)]
-    rc = _v1_lib("sw").sw_scores(
-        R, blk_slot.numel(), _stream(dev), prof_aa.data_ptr(),
-        prof_ss.data_ptr(), prof_aa.shape[1], *(t.data_ptr() for t in plan),
-        res_aa.data_ptr(), res_ss.data_ptr(), *(t.data_ptr() for t in pairs),
-        scratch.data_ptr(), gap_open, gap_extend,
-        *(t.data_ptr() for t in out))
-    if rc != 0:
-        raise RuntimeError(f"v1 SW kernel: CUDA error {rc}")
-    return tuple(out)
-
-
 def ptxas_instances(log: str):
     """[{kernel, registers, smem, spill_stores, spill_loads}] from nvcc's
     `-Xptxas -v` output, one entry per compiled kernel instance."""
@@ -350,7 +269,6 @@ def total(records) -> dict:
     bounds summed, bound by what bounds the largest of them."""
     return dict(max_abs_err=max(r["max_abs_err"] for r in records),
                 ms=sum(r["ms"] for r in records),
-                v1_ms=sum(r["v1_ms"] for r in records),
                 plain_ms=sum(r["plain_ms"] for r in records),
                 bound_ms=sum(r["bound_ms"] for r in records),
                 bound_by=max(records,
@@ -392,17 +310,9 @@ def prefilter_stack(seqs, dev, capped: bool = True):
             for a in pack_profiles_batch(profs, caps)]
 
 
-def same(got, want, what: str) -> None:
-    import torch
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"{what}: the earlier kernel and the current "
-                             "one disagree")
-
-
 def gapless_case(card, label, args, real_residues, report_list, reps=5):
     """Drive the single-alphabet gapless kernel once against its plain
-    version and time it, its predecessor and the plain version; returns the
-    shape record."""
+    version and time it and the plain version; returns the shape record."""
     import torch
 
     from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
@@ -410,12 +320,9 @@ def gapless_case(card, label, args, real_residues, report_list, reps=5):
     prof, q_off, caps, t_dev = args
     got = gapless_scores_batch(*args)
     want = gapless_scores_batch_torch(*args)
-    same([got], [v1_gapless(*args)], f"gapless {label}")
     torch.cuda.synchronize()
-    v1_ms, ms = turns_ms(lambda: v1_gapless(*args),
-                         lambda: gapless_scores_batch(*args), reps)
-    rec = dict(label=label, max_abs_err=max_abs_err([got], [want]),
-               ms=ms, v1_ms=v1_ms,
+    ms = cuda_ms(lambda: gapless_scores_batch(*args), reps)
+    rec = dict(label=label, max_abs_err=max_abs_err([got], [want]), ms=ms,
                kernel_ms=profiled_kernel_ms(
                    lambda: gapless_scores_batch(*args), "gapless_kernel"),
                plain_ms=cuda_ms(lambda: gapless_scores_batch_torch(*args)),
@@ -423,8 +330,8 @@ def gapless_case(card, label, args, real_residues, report_list, reps=5):
                **card.bound(int(q_off[-1]) * real_residues, GAPLESS_PACKED_OPS,
                             nbytes(prof, q_off, caps, t_dev, got)))
     log(f"gapless {label}: max_abs_err={rec['max_abs_err']} wrapper "
-        f"{ms:.3f} ms (v1 {v1_ms:.3f}; kernel alone by the profiler "
-        f"{rec['kernel_ms']}) plain {rec['plain_ms']:.3f} ms bound "
+        f"{ms:.3f} ms (kernel alone by the profiler {rec['kernel_ms']}) "
+        f"plain {rec['plain_ms']:.3f} ms bound "
         f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}, {GAPLESS_PACKED_OPS} "
         f"ops/cell), {rec['cells'] / ms / 1e6:.1f} GCUPS over real cells")
     report_list.append(rec)
@@ -484,8 +391,8 @@ def phase_gapless(card, dev, tdb, qdb, pieces, report):
 
 
 def sw_case(card, label, args, report_list, reps=5, ops=SW_OPS_PER_CELL):
-    """Drive the SW kernel once against its plain version and time it, its
-    predecessor and the plain version."""
+    """Drive the SW kernel once against its plain version and time it and
+    the plain version."""
     import numpy as np
     import torch
 
@@ -494,7 +401,6 @@ def sw_case(card, label, args, report_list, reps=5, ops=SW_OPS_PER_CELL):
     paa, pss, slot_off, pair_start, _ra, _rs, toff, tlen = args
     got = sw_scores_pairs(*args)
     want = sw_scores_pairs_torch(*args)
-    same(got, v1_sw(*args), f"sw {label}")
     torch.cuda.synchronize()
     toff, tlen = np.asarray(toff), np.asarray(tlen)
     pairs = np.diff(np.asarray(pair_start))
@@ -502,17 +408,16 @@ def sw_case(card, label, args, report_list, reps=5, ops=SW_OPS_PER_CELL):
     _, first = np.unique(toff, return_index=True)
     moved = (nbytes(paa, pss) + 2 * int(tlen[first].sum())
              + len(tlen) * (8 + 4 + 3 * 4))
-    v1_ms, ms = turns_ms(lambda: v1_sw(*args),
-                         lambda: sw_scores_pairs(*args), reps)
+    ms = cuda_ms(lambda: sw_scores_pairs(*args), reps)
     rec = dict(label=label, pairs=len(tlen),
-               max_abs_err=max_abs_err(got, want), ms=ms, v1_ms=v1_ms,
+               max_abs_err=max_abs_err(got, want), ms=ms,
                kernel_ms=profiled_kernel_ms(lambda: sw_scores_pairs(*args),
                                             "sw_kernel"),
                plain_ms=cuda_ms(lambda: sw_scores_pairs_torch(*args)),
                positive=int((got[0] > 0).sum()), ops_per_cell=ops,
                **card.bound(cells, ops, moved))
     log(f"sw {label}: {rec['pairs']} pairs, max_abs_err={rec['max_abs_err']} "
-        f"wrapper {ms:.3f} ms (v1 {v1_ms:.3f}; kernel alone by the profiler "
+        f"wrapper {ms:.3f} ms (kernel alone by the profiler "
         f"{rec['kernel_ms']}) plain {rec['plain_ms']:.3f} ms "
         f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, {ops} ops/cell), "
         f"{cells / ms / 1e6:.1f} GCUPS, pairs with score > 0: "
@@ -648,19 +553,16 @@ def phase_call_shapes(card, dev, tdb, qdb, pieces, panels, report):
         args = (aa, ss, q_off, t_aa, t_ss)
         got = tg.gapless_scores_dual(*args)
         want = tg.gapless_scores_dual_torch(*args)
-        same([got], [v1_gapless_dual(*args)], f"gapless_dual {label}")
         torch.cuda.synchronize()
-        v1_ms, ms = turns_ms(lambda: v1_gapless_dual(*args),
-                             lambda: tg.gapless_scores_dual(*args), 5)
-        rec = dict(label=label, max_abs_err=max_abs_err([got], [want]),
-                   ms=ms, v1_ms=v1_ms,
+        ms = cuda_ms(lambda: tg.gapless_scores_dual(*args), 5)
+        rec = dict(label=label, max_abs_err=max_abs_err([got], [want]), ms=ms,
                    plain_ms=cuda_ms(
                        lambda: tg.gapless_scores_dual_torch(*args)),
                    max_score=int(got.max()), ops_per_cell=GAPLESS_DUAL_OPS,
                    **card.bound(int(q_off[-1]) * real, GAPLESS_DUAL_OPS,
                                 nbytes(aa, ss, q_off, t_aa, t_ss, got)))
         log(f"gapless_dual {label}: max_abs_err={rec['max_abs_err']} kernel "
-            f"{ms:.3f} ms (v1 {v1_ms:.3f}) plain {rec['plain_ms']:.3f} ms "
+            f"{ms:.3f} ms plain {rec['plain_ms']:.3f} ms "
             f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}, "
             f"{GAPLESS_DUAL_OPS} ops/cell), max score {rec['max_score']}")
         report["gapless_dual"].append(rec)
@@ -704,6 +606,16 @@ class gates_env:
         os.environ.pop("FOLDSEEK_TPU_DEVICE_GATES", None)
         if self.old is not None:
             os.environ["FOLDSEEK_TPU_DEVICE_GATES"] = self.old
+
+
+def m8_bytes(qdb, tdb, results) -> bytes:
+    """The m8 text of mode-1 results with backtraces, as `search -a` +
+    `convertalis` write it."""
+    from foldseek_tpu_torch.search import format_results
+    from foldseek_tpu_torch.search.params import SearchParams
+    lines = format_results(qdb, tdb, results, SearchParams().format_output,
+                           with_backtrace=True)
+    return ("\n".join(lines) + "\n").encode()
 
 
 def check_lines(lines, qdb):
@@ -1169,30 +1081,31 @@ def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
         raise AssertionError("SW kernel disagrees with its plain version at "
                              "mode-3 shapes")
     # the whole DB in one call, as the search path makes it: the plan of
-    # the pairs built on the card
+    # the pairs built on the card; it must give the chunks' scores
     whole = list(sw_args(paa, pss, [np.arange(tdb.size)] * len(pss), panels,
                          dev))
-    on_host = tuple(whole)
     whole[6] = torch.as_tensor(whole[6]).to(dev)
     whole[7] = torch.as_tensor(whole[7]).to(dev, torch.int32)
-    same(sw_scores_pairs(*whole), v1_sw(*on_host), "sw mode 3 whole DB")
-    v1_wrapper_ms, wrapper_ms = turns_ms(lambda: v1_sw(*on_host),
-                                         lambda: sw_scores_pairs(*whole), 3)
+    got = [x.reshape(len(pss), tdb.size) for x in sw_scores_pairs(*whole)]
+    for c0 in range(0, tdb.size, MODE3_CHUNK):
+        chunk = np.arange(c0, min(c0 + MODE3_CHUNK, tdb.size))
+        part = sw_scores_pairs(*sw_args(paa, pss, [chunk] * len(pss), panels,
+                                        dev))
+        if not all(torch.equal(g[:, c0:c0 + len(chunk)],
+                               x.reshape(len(pss), len(chunk)))
+                   for g, x in zip(got, part)):
+            raise AssertionError("sw mode 3: the whole-DB call disagrees "
+                                 f"with the chunk from target {c0}")
+    wrapper_ms = cuda_ms(lambda: sw_scores_pairs(*whole), 3)
     kernel_ms = profiled_kernel_ms(lambda: sw_scores_pairs(*whole),
                                    "sw_kernel")
-    v1_kernel_ms = profiled_kernel_ms(lambda: v1_sw(*on_host), "sw_kernel")
     torch.cuda.synchronize()
-
-    def shown(ms):
-        return "not measured" if ms is None else f"{ms:.3f} ms"
-
+    shown = "not measured" if kernel_ms is None else f"{kernel_ms:.3f} ms"
     log(f"sw mode 3 whole DB ({tdb.size * len(pss)} pairs): wrapper "
-        f"{wrapper_ms:.3f} ms (v1 {v1_wrapper_ms:.3f}; CUDA events, plan "
-        f"included), kernel {shown(kernel_ms)} (v1 {shown(v1_kernel_ms)}; "
-        f"torch.profiler)")
+        f"{wrapper_ms:.3f} ms (CUDA events, plan included), kernel {shown} "
+        "(torch.profiler)")
     report["sw_mode3_whole"] = dict(
-        pairs=tdb.size * len(pss), wrapper_ms=wrapper_ms, kernel_ms=kernel_ms,
-        v1_wrapper_ms=v1_wrapper_ms, v1_kernel_ms=v1_kernel_ms)
+        pairs=tdb.size * len(pss), wrapper_ms=wrapper_ms, kernel_ms=kernel_ms)
     return total(records)
 
 
@@ -1450,36 +1363,293 @@ def phase_rbh(dev, tdb, qdb, work, report):
     return rec["launches"]
 
 
+# --- the DB, stage and output verbs and the index server ----------------------
+
+def socket_path(work: str, name: str) -> str:
+    """A unix socket path under `work`, or under a fresh short temporary
+    directory when that would pass the 107 bytes an AF_UNIX path holds."""
+    path = os.path.join(work, name)
+    return path if len(path) < 100 else os.path.join(
+        tempfile.mkdtemp(prefix="fs"), name)
+
+
+class served:
+    """`server.serve` of a DB on `device` in a thread of this process inside
+    a with: its socket path; shut down and joined on the way out."""
+
+    def __init__(self, db_path: str, sock: str, device):
+        self.db_path, self.sock, self.device = db_path, sock, device
+
+    def __enter__(self):
+        import threading
+
+        from foldseek_tpu_torch import server
+        self.errors = []
+
+        def run():
+            try:
+                server.serve(self.db_path, self.sock, 1000, self.device)
+            except Exception as e:   # the main thread raises it on exit
+                self.errors.append(e)
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        deadline = time.perf_counter() + 300
+        while not os.path.exists(self.sock):
+            if self.errors or time.perf_counter() > deadline:
+                raise AssertionError(f"index server did not come up: "
+                                     f"{self.errors}")
+            time.sleep(0.05)
+        return self.sock
+
+    def __exit__(self, *exc):
+        from foldseek_tpu_torch import server
+        if os.path.exists(self.sock):
+            client = server.IndexServerClient(self.sock)
+            client.shutdown()
+            client.close()
+        self.thread.join(timeout=120)
+        if self.thread.is_alive() or self.errors or os.path.exists(self.sock):
+            raise AssertionError(f"index server did not shut down cleanly: "
+                                 f"{self.errors}")
+
+
+def cli(*argv) -> None:
+    """One verb through the port's command line in this process."""
+    from foldseek_tpu_torch.cli import main as port_main
+    rc = port_main([*map(str, argv), "-v", "1"])
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} exited {rc}")
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def counted(dev, what: str, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (its value, seconds, launches)."""
+    import torch
+    reset_counts(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(dev, ())["launches"]
+    log(f"{what}: {seconds:.3f} s, launches {launches}")
+    return out, seconds, launches
+
+
+def phase_verbs_server(dev, tdb, qdb, work, host_m8: bytes, report):
+    """12. createindex on a copy of the target DB; the prefilter over the
+    index's panels against built panels, and a cold mode-1 search over it;
+    the index server on the card in a thread of this process against the
+    in-process prefilter; `search --gpu 1 -a` of the unindexed target DB in
+    fresh processes without and with --index-server, in turns, printed by
+    convertalis and held against phase 5's m8 (host gates); the stage verbs ungappedprefilter,
+    structurealign, samplemulambda and aln2tmscore through the command line
+    on the card. Returns path -> launches."""
+    import shutil
+
+    import numpy as np
+
+    from foldseek_tpu_torch.db import load_db
+    from foldseek_tpu_torch.db.panels import release_resident_panels
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search.ungapped import UngappedPrefilter
+    from foldseek_tpu_torch.server import IndexServerClient
+    t_phase = time.perf_counter()
+    rec, paths = {}, {}
+    d = os.path.join(work, "slice6")
+    os.makedirs(d)
+    # (a) an indexed copy: the earlier phases' DB stays without an index
+    idx_path = os.path.join(d, "targets_indexed")
+    shutil.copytree(tdb.path, idx_path)
+    t0 = time.perf_counter()
+    cli("createindex", idx_path)
+    rec["createindex_seconds"] = time.perf_counter() - t0
+    idb = load_db(idx_path)
+    # (b) the index's panels give the built panels' hits
+    seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
+    params = SearchParams()
+    from_index = UngappedPrefilter(idb, dev)
+    if not all(isinstance(b.panel_T, np.memmap)
+               for b in from_index.panels.buckets):
+        raise AssertionError("the indexed DB's panels were not read from "
+                             "its index")
+    local_hits = from_index.query_batch(seqs, params)
+    if local_hits != UngappedPrefilter(tdb, dev).query_batch(seqs, params):
+        raise AssertionError("prefilter hits over the index's panels differ "
+                             "from those over built panels")
+    release_resident_panels()
+    with gates_env("0"):
+        _res, lines, cold = counted_search(qdb, idb, dev, 1)
+    if ("\n".join(lines) + "\n").encode() != host_m8:
+        raise AssertionError("mode 1 over the indexed DB differs from phase "
+                             "5's m8")
+    rec["cold_mode1_index_panels"] = cold
+    rec["cold_mode1_built_panels_seconds"] = \
+        report["e2e_mode1_host_gates"]["cold"]["seconds"] \
+        if "e2e_mode1_host_gates" in report else None
+    log(f"createindex {rec['createindex_seconds']:.2f} s; cold mode 1 over "
+        f"the index's panels {cold['seconds']:.3f} s (stages "
+        f"{cold['stages']}), phase 5's cold run with host gates "
+        f"{rec['cold_mode1_built_panels_seconds']} s")
+    sock = socket_path(d, "idx.sock")
+    reset_counts(dev)
+    with served(idx_path, sock, dev):
+        # (c) the server against the in-process prefilter
+        client = IndexServerClient(sock)
+        try:
+            ping = client.ping()
+            served_hits = client.query_batch(seqs)
+            trips = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                client.query_batch(seqs)
+                trips.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            client.close()
+        paths["server"] = read_counts(dev, ())["launches"]
+        in_process = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            from_index.query_batch(seqs, params)
+            in_process.append((time.perf_counter() - t0) * 1e3)
+        if ping != {"ok": True, "n_targets": tdb.size}:
+            raise AssertionError(f"index server ping: {ping}")
+        if served_hits != local_hits:
+            raise AssertionError("index server hits differ from the "
+                                 "in-process prefilter's")
+        if not paths["server"]["gapless"]:
+            raise AssertionError(f"the index server launched no gapless "
+                                 f"kernel: {paths['server']}")
+        rec["server"] = dict(round_trip_ms=trips, in_process_ms=in_process,
+                             launches=paths["server"])
+        log(f"index server: ping {ping}, 16-query round trips "
+            f"{[round(t, 2) for t in trips]} ms, in-process "
+            f"{[round(t, 2) for t in in_process]} ms, launches "
+            f"{paths['server']}")
+        # (d) fresh search processes, without and with the server, in turns
+        env = dict(os.environ, PYTHONPATH=REPO, FOLDSEEK_TPU_DEVICE_GATES="0")
+        walls = []
+        reset_counts(dev)
+        for k, use_server in enumerate((False, True, True, False)):
+            res = os.path.join(d, f"res{k}")
+            argv = [sys.executable, "-m", "foldseek_tpu_torch", "search",
+                    qdb.path, tdb.path, res, os.path.join(d, f"tmp{k}"),
+                    "--gpu", "1", "-a", "--device", str(dev), "-v", "1"]
+            if use_server:
+                argv += ["--index-server", sock]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            walls.append(dict(index_server=use_server,
+                              seconds=time.perf_counter() - t0))
+            if proc.returncode != 0:
+                raise AssertionError(f"search process exited "
+                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            cli("convertalis", qdb.path, tdb.path, res, res + ".m8")
+            if read_bytes(res + ".m8") != host_m8:
+                raise AssertionError(f"search process {k} (index server "
+                                     f"{use_server}): its m8 differs from "
+                                     "phase 5's")
+        paths["server_search"] = read_counts(dev, ())["launches"]
+        if not paths["server_search"]["gapless"]:
+            raise AssertionError("the served searches launched no gapless "
+                                 "kernel in the server")
+    rec["search_processes"] = walls
+    log(f"search processes (without, with, with, without the server): "
+        f"{[round(w['seconds'], 2) for w in walls]} s; the server's launches "
+        f"{paths['server_search']}")
+    # (e) the stage verbs on the card
+    res_d = os.path.join(d, "res1")
+    out = os.path.join(d, "ungapped")
+    _, rec["ungappedprefilter_seconds"], paths["ungappedprefilter"] = counted(
+        dev, "ungappedprefilter", lambda: cli(
+            "ungappedprefilter", qdb.path, idx_path, out, "--device", dev))
+    lines = read_bytes(out).decode().splitlines()[1:]
+    want = [f"{int(qdb.keys[qi])}\t{k}\t{sc}" for qi, hits in
+            enumerate(local_hits) for k, sc in hits]
+    if lines != want:
+        raise AssertionError("ungappedprefilter's lines differ from the "
+                             "index server's hits")
+    out = os.path.join(d, "realigned")
+    _, rec["structurealign_seconds"], paths["structurealign"] = counted(
+        dev, "structurealign -a", lambda: cli(
+            "structurealign", qdb.path, idx_path, res_d, out, "-a",
+            "--device", dev))
+    rec["structurealign_records"] = read_bytes(out).count(b"\n")
+    out = os.path.join(d, "mulambda")
+    _, rec["samplemulambda_seconds"], paths["samplemulambda"] = counted(
+        dev, "samplemulambda", lambda: cli(
+            "samplemulambda", qdb.path, idx_path, out, "--device", dev))
+    fits = [line.split("\t") for line in read_bytes(out).decode().splitlines()]
+    out = os.path.join(d, "tmscores")
+    t0 = time.perf_counter()
+    cli("aln2tmscore", qdb.path, idx_path, res_d, out)
+    rec["aln2tmscore_seconds"] = time.perf_counter() - t0
+    tms = [float(line.split("\t")[1].split()[1])
+           for line in read_bytes(out).decode().splitlines()]
+    if not (paths["structurealign"]["sw"] and paths["samplemulambda"]["sw"]
+            and paths["ungappedprefilter"]["gapless"]):
+        raise AssertionError(f"a stage verb launched no kernel: {paths}")
+    if len(fits) != qdb.size or not all(
+            np.isfinite(float(x)) for f in fits for x in f[1:]):
+        raise AssertionError(f"samplemulambda: {fits}")
+    if len(tms) != host_m8.count(b"\n") or not all(0 < t <= 1 for t in tms):
+        raise AssertionError("aln2tmscore: wrong record count or a "
+                             "TM-score outside (0, 1]")
+    rec["aln2tmscore_records"] = len(tms)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"stage verbs: ungappedprefilter {rec['ungappedprefilter_seconds']:.2f}"
+        f" s, structurealign {rec['structurealign_seconds']:.2f} s "
+        f"({rec['structurealign_records']} records), samplemulambda "
+        f"{rec['samplemulambda_seconds']:.2f} s, aln2tmscore "
+        f"{rec['aln2tmscore_seconds']:.2f} s ({len(tms)} records)")
+    log(f"phase 12 seconds: {rec['seconds']:.1f}")
+    report["slice6"] = rec
+    return paths
+
+
 # Phase 7's comparisons, cuda against cpu. Each group is run by one process
-# on one device, and the groups stand in the order of their cpu seconds at
-# 2,000 entries (easy-cluster and cluster-search about 100 s, rbh 90,
-# multimer 75, two iterations 49, the rest 9-27) so that the worker
+# on one device, and the groups stand in the order of their cpu seconds
+# (rbh about 115 s, two iterations 75, easy-cluster with cluster-search 65,
+# multimer 55, the rest 13-35 on a slow 8-core host) so that the worker
 # processes of the cpu side end together.
 PARITY_SEARCHES = {"mode1": dict(mode=1), "mode3": dict(mode=3),
                    "mode0": dict(mode=0),
                    "iter2_mode1": dict(mode=1, iterations=2),
                    "tmalign": dict(mode=1, alignment_type=1),
                    "lolalign": dict(mode=1, alignment_type=3)}
-PARITY_GROUPS = (("easy_cluster", "clusearch"), ("rbh",), ("multimer",),
-                 ("iter2_mode1",), ("lolalign",), ("multimercluster",),
-                 ("tmalign",), ("mode0",), ("mode1",), ("mode3",))
+PARITY_GROUPS = (("rbh",), ("iter2_mode1",), ("easy_cluster", "clusearch"),
+                 ("multimer",), ("multimercluster",), ("lolalign",),
+                 ("tmalign",), ("index_server",), ("mode0",), ("mode1",),
+                 ("stage_verbs",), ("mode3",))
+# entries of the DB the workflow groups (easy-cluster, cluster-search, rbh,
+# multimer) compare on: their cpu side grows faster than linearly with it
+# (230 s for rbh alone at 2,000 entries on a slow host), and at 2,000 the
+# script came within 54 s of its 1,200 s limit
+WORKFLOW_PARITY_ENTRIES = 1000
 # worker processes of the cpu side: the plain versions keep about half of
 # the host's cores busy, so two of them beside the cuda side fill it
 PARITY_CPU_WORKERS = 2
 
 
 def parity_inputs(base, pdb, qdb, work) -> dict:
-    """The DBs of phase 7 on disk, by name: the queries, the parity DB,
-    both regrouped into two-chain complexes, and easy-multimercluster's
+    """The DBs of phase 7 on disk, by name: the queries, the parity DB, the
+    workflow groups' DB of WORKFLOW_PARITY_ENTRIES entries, it and the
+    queries regrouped into two-chain complexes, and easy-multimercluster's
     complex DB; "out" is the directory the workflows write to."""
     from foldseek_tpu_torch.db import synth_db
     d = os.path.join(work, "parity_inputs")
     paths = dict(out=os.path.join(work, "parity_outputs"), queries=qdb.path,
-                 parity=pdb.path,
+                 parity=pdb.path, workflow=os.path.join(d, "workflow"),
                  complex_targets=os.path.join(d, "complex_targets"),
                  complex_queries=os.path.join(d, "complex_queries"),
                  mmclu=os.path.join(d, "mmclu"))
-    complex_db(pdb, paths["complex_targets"])
+    complex_db(synth_db(base, WORKFLOW_PARITY_ENTRIES, paths["workflow"],
+                        seed=1), paths["complex_targets"])
     complex_db(qdb, paths["complex_queries"])
     complex_db(synth_db(base, MULTIMER_CLUSTER_ENTRIES,
                         os.path.join(d, "mmclu_src"), seed=3), paths["mmclu"])
@@ -1533,17 +1703,17 @@ def parity_side(group, paths: dict, device):
                 res_mode1 = res
         elif name == "easy_cluster":
             prefix = os.path.join(d, "clu")
-            clusters = cluster_files(load_db(paths["parity"]), dev, prefix,
+            clusters = cluster_files(load_db(paths["workflow"]), dev, prefix,
                                      os.path.join(d, "clu_tmp"))
             outputs = files(prefix, ("_cluster.tsv", "_rep_seq.fasta",
                                      "_all_seqs.fasta"))
         elif name == "clusearch":
             path = os.path.join(d, "clusearch")
-            create_clusearch_db(load_db(paths["parity"]), clusters, path)
+            create_clusearch_db(load_db(paths["workflow"]), clusters, path)
             outputs = [text(clusearch_lines(qdb, path, dev, os.path.join(
                 d, "clusearch_tmp"))[1])]
         elif name == "rbh":
-            outputs = [text(easy_rbh(paths["queries"], paths["parity"],
+            outputs = [text(easy_rbh(paths["queries"], paths["workflow"],
                                      os.path.join(d, "rbh.m8"),
                                      os.path.join(d, "rbh_tmp"),
                                      SearchParams(prefilter_mode=1), dev))]
@@ -1553,6 +1723,18 @@ def parity_side(group, paths: dict, device):
                                          dev)
             outputs = [text(f"{q}\t{ln}" for q in sorted(lines)
                             for ln in lines[q]), text(rep)]
+        elif name == "stage_verbs":
+            outputs = stage_verb_outputs(paths, d, dev)
+        elif name == "index_server":
+            res = os.path.join(d, "served")
+            with served(paths["parity"], socket_path(d, "p.sock"),
+                        dev) as sock:
+                cli("search", paths["queries"], paths["parity"], res,
+                    res + "_tmp", "--gpu", "1", "-a", "--index-server", sock,
+                    "--device", dev)
+            cli("convertalis", paths["queries"], paths["parity"], res,
+                res + ".m8")
+            outputs = [read_bytes(res + ".m8")]
         else:   # multimercluster
             prefix = os.path.join(d, "mmclu")
             easy_multimer_cluster(paths["mmclu"], prefix,
@@ -1563,13 +1745,43 @@ def parity_side(group, paths: dict, device):
     return out, res_mode1
 
 
+def stage_verb_outputs(paths: dict, d: str, dev) -> list:
+    """The outputs of the stage verbs on `dev` over the parity DB:
+    ungappedprefilter, `search --gpu 1 --max-seqs 50`, structurealign -a
+    over that result, samplemulambda, and convertalis of the realigned
+    result in format modes 0-5 (mode 5 writes a PDB file a hit: their names
+    and bytes, in name order)."""
+    q, t, pre = paths["queries"], paths["parity"], os.path.join(d, "sv")
+    cli("ungappedprefilter", q, t, pre + "_ungapped", "--device", dev)
+    cli("search", q, t, pre + "_res", pre + "_tmp", "--gpu", "1",
+        "--max-seqs", "50", "--device", dev)
+    cli("structurealign", q, t, pre + "_res", pre + "_aln", "-a", "--device",
+        dev)
+    cli("samplemulambda", q, t, pre + "_mulambda", "--device", dev)
+    outputs = [read_bytes(pre + x)
+               for x in ("_ungapped", "_res", "_aln", "_mulambda")]
+    for mode in range(6):
+        out = f"{pre}_mode{mode}"
+        if mode == 5:
+            os.makedirs(out)
+            out += "/"
+        cli("convertalis", q, t, pre + "_aln", out, "--format-mode", mode)
+        if mode == 5:
+            outputs.append(b"".join(
+                name.encode() + b"\0" + read_bytes(out + name)
+                for name in sorted(os.listdir(out))))
+        else:
+            outputs.append(read_bytes(out))
+    return outputs
+
+
 def phase_parity(dev, base, pdb, qdb, work, report):
     """7. parity, cuda against cpu, byte for byte, with the host's gates on
-    both sides, on the parity DB: the m8 lines of PARITY_SEARCHES,
-    easy-cluster's three files and the cluster-search m8 over those
-    clusters, the easy-rbh m8 (--gpu 1), the multimer score lines and report
-    (complexes of two entries); easy-multimercluster's two files on a
-    smaller complex DB. The
+    both sides, on the parity DB: the m8 lines of PARITY_SEARCHES and the
+    outputs of the stage verbs; on the workflow DB: easy-cluster's three
+    files and the cluster-search m8 over those clusters, the easy-rbh m8
+    (--gpu 1), the multimer score lines and report (complexes of two
+    entries); easy-multimercluster's two files on a smaller complex DB. The
     cpu side runs in PARITY_CPU_WORKERS spawned processes while this one
     runs the cuda side. Then mode 1 with the device gates on the card
     against the host gates on the cpu, inside the band of phase 5."""
@@ -1579,6 +1791,8 @@ def phase_parity(dev, base, pdb, qdb, work, report):
     from foldseek_tpu_torch.db import load_db
     paths = parity_inputs(base, pdb, qdb, work)
     entries = {name: pdb.size for g in PARITY_GROUPS for name in g}
+    entries.update(dict.fromkeys(("easy_cluster", "clusearch", "rbh",
+                                  "multimer"), WORKFLOW_PARITY_ENTRIES))
     entries["multimercluster"] = load_db(paths["mmclu"]).size
     threads = max(1, (os.cpu_count() or 2) // PARITY_CPU_WORKERS)
     pool = ProcessPoolExecutor(
@@ -1774,10 +1988,10 @@ def main() -> int:
                   sw_mode3=[])
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:   # one compiler per source, together
+    with ThreadPoolExecutor(3) as pool:   # one compiler per source, together
         native = pool.submit(native_ready)
         built = {name: pool.submit(_build.load, name)
-                 for name in ("gapless", "sw", "gapless_v1", "sw_v1")}
+                 for name in ("gapless", "sw")}
         report["ptxas"] = {}
         for name, fut in built.items():
             b = fut.result()
@@ -1793,8 +2007,8 @@ def main() -> int:
             if not b.log:
                 log(f"  csrc/{name}.cu was built before this run: no ptxas "
                     "output")
-            elif not name.endswith("_v1") and (not instances or any(
-                    i["spill_stores"] or i["spill_loads"] for i in instances)):
+            elif not instances or any(
+                    i["spill_stores"] or i["spill_loads"] for i in instances):
                 raise AssertionError(f"csrc/{name}.cu: ptxas reports spills, "
                                      "or no instance was found in its log")
         if not native.result():
@@ -1825,6 +2039,7 @@ def main() -> int:
         res_dev, res_host = (res_a, res_b) if fleets_by_default \
             else (res_b, res_a)
         del res_a, res_b
+        host_m8 = m8_bytes(qdb, tdb, res_host)
         phase_gate_turns(dev, tdb, qdb, report)
         report["e2e_mode1_gates_vs_host"] = compare_gates(
             res_host, res_dev, f"e2e mode 1, {tdb.size} targets: device "
@@ -1838,6 +2053,7 @@ def main() -> int:
         mode3, _ = phase_e2e(dev, tdb, qdb, 3, report)
         s3 = phase_mode3_kernel(card, dev, tdb, qdb,
                                 resident_panels(tdb, dev), report)
+        paths.update(phase_verbs_server(dev, tdb, qdb, work, host_m8, report))
         phase_parity(dev, base, pdb, qdb, work, report)
         clu_db, clusters, paths["cluster"] = phase_cluster(
             dev, base, work, CLUSTER_ENTRIES, report)

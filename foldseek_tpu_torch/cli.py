@@ -3,15 +3,20 @@
 Usage: python -m foldseek_tpu_torch <command> [args...]
 
 The commands are those of `foldseek_tpu`'s command line that the port
-covers: searches (easy-search, search, also with --cluster-search 1),
+covers: the DB and output verbs (createdb, createindex, compressca,
+convertalis), searches (easy-search, search, also with --cluster-search 1
+and --index-server), the stage verbs (prefilter, ungappedprefilter,
+structurealign, tmalign, lolalign, aln2tmscore, samplemulambda,
+result2profile), the resident index server (indexserver, gpuserver),
 clustering (cluster, easy-cluster, createclusearchdb), reciprocal best hits
 (rbh, easy-rbh) and complexes (multimersearch, easy-multimersearch,
 multimercluster, easy-multimercluster and the complexsearch aliases).
 Flags, defaults and output bytes are those of `foldseek_tpu`'s verbs;
 `--gpu 1` selects the ungapped prefilter as in the reference's GPU mode and
 `--prefilter-mode 3` the ungapped + gapped mode that exists only on a GPU.
-`--device` picks where the stages run: `cuda` (the CUDA kernels, the
-default) or `cpu` (their plain PyTorch versions).
+`--device` picks where the stages of a verb that runs them go: `cuda` (the
+CUDA kernels, the default) or `cpu` (their plain PyTorch versions); the
+verbs that only read and write files take no `--device`.
 """
 from __future__ import annotations
 
@@ -150,6 +155,369 @@ def _parse(p: argparse.ArgumentParser, argv):
     return args, params_from_args(args), get_device(args.device)
 
 
+def cmd_createdb(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch createdb")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("output")
+    p.add_argument("--chain-name-mode", type=int, default=0,
+                   help="0: auto, 1: always add chain name")
+    p.add_argument("--mask-bfactor-threshold", type=float, default=0.0)
+    p.add_argument("--prostt5-model", type=str, default="",
+                   help="GGUF weights: predict 3Di from FASTA input (not "
+                        "ported)")
+    p.add_argument("--tax-mapping-file", type=str, default="",
+                   help="TSV of entry name -> NCBI taxid")
+    p.add_argument("--file-include", default=".*",
+                   help="regex: directory entries to ingest")
+    p.add_argument("--file-exclude", default="^$",
+                   help="regex: directory entries to skip")
+    p.add_argument("--tar-include", default=".*",
+                   help="regex: tar members to ingest")
+    p.add_argument("--tar-exclude", default="^$",
+                   help="regex: tar members to skip")
+    p.add_argument("--input-format", type=int, default=0,
+                   help="0: auto-detect (content sniffing), 1: PDB,"
+                        " 2: mmCIF, 3: mmJSON, 5: Foldcomp"
+                        " (LocalParameters.cpp:36)")
+    p.add_argument("--write-lookup", type=int, default=0,
+                   help="1: also write a reference-format .lookup file"
+                        " (key\\tname\\tfileid)")
+    p.add_argument("--coord-store-mode", type=int, default=1,
+                   help="1: C-alpha float32 (native layout); 2: also emit"
+                        " the int16-diff ca16.bin (Coordinate16 artifact)")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    if args.input_format == 4:
+        raise SystemExit("createdb: ChemComp (--input-format 4) is not"
+                         " supported")
+    if not 0 <= args.input_format <= 5:
+        raise SystemExit("invalid value for --input-format")
+    from .ingest.createdb import create_db
+    db = create_db(args.inputs, args.output,
+                   chain_name_mode="add" if args.chain_name_mode == 1 else "auto",
+                   mask_bfactor_threshold=args.mask_bfactor_threshold,
+                   prostt5_model=args.prostt5_model,
+                   file_include=args.file_include,
+                   file_exclude=args.file_exclude,
+                   tar_include=args.tar_include,
+                   tar_exclude=args.tar_exclude,
+                   input_format=args.input_format)
+    if args.tax_mapping_file:
+        from .db.taxonomy import load_tax_mapping, save_db_mapping
+        save_db_mapping(db, load_tax_mapping(args.tax_mapping_file))
+    if args.write_lookup:
+        # reference .lookup format: id\tentryName\tfileNumber
+        with open(args.output + ".lookup", "w") as f:
+            for i in range(db.size):
+                fid = int(db.fileids[i]) if db.fileids is not None else 0
+                f.write(f"{int(db.keys[i])}\t{db.names[i]}\t{fid}\n")
+    if args.coord_store_mode == 2:
+        cmd_compressca([args.output, "-v", "1"])
+    return 0
+
+
+def cmd_createindex(argv) -> int:
+    """The bucket panels and k-mer postings of a DB under <db>/index/
+    (`db/index.py`); a search of the DB then reads them instead of building
+    them. Host work only: it takes no --device."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch createindex")
+    p.add_argument("db")
+    p.add_argument("tmp_dir", nargs="?")
+    p.add_argument("-k", "--kmer-size", type=int, default=0)
+    p.add_argument("-s", "--sensitivity", type=float, default=9.5)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.index import create_index
+    from .db.storage import load_db
+    create_index(load_db(args.db), k=args.kmer_size,
+                 sensitivity=args.sensitivity)
+    return 0
+
+
+def cmd_compressca(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch compressca")
+    p.add_argument("db")
+    p.add_argument("output", nargs="?", help="default: <db>/ca16.bin")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+
+    from .db.coords16 import encode_ca
+    from .db.storage import load_db
+    db = load_db(args.db)
+    out = args.output or os.path.join(args.db, "ca16.bin")
+    offsets = [0]
+    with open(out, "wb") as f:
+        for i in range(db.size):
+            payload, _ = encode_ca(np.asarray(db.get_ca(i)))
+            f.write(payload)
+            offsets.append(offsets[-1] + len(payload))
+    np.save(out + ".offsets.npy", np.asarray(offsets, dtype=np.int64))
+    raw = db.total_residues * 12
+    logger.info("compressca: %d -> %d bytes (%.1fx)", raw, offsets[-1],
+                raw / max(offsets[-1], 1))
+    return 0
+
+
+def read_complex_db(path: str):
+    """Read the complexres DB written by multimersearch: lines
+    `qkey\\t<scorecomplex cols>`."""
+    out = {}
+    with open(path) as f:
+        header = f.readline()
+        if not header.startswith("#foldseek-tpu complexres"):
+            raise ValueError(f"{path}: not a foldseek-tpu complex result DB")
+        for line in f:
+            qkey, rest = line.rstrip("\n").split("\t", 1)
+            out.setdefault(int(qkey), []).append(rest)
+    return out
+
+
+def cmd_convertalis(argv) -> int:
+    """A result DB as BLAST-tab, SAM, HTML or superposed PDB (reference:
+    src/strucclustutils/structureconvertalis.cpp). Host work only."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch convertalis")
+    for name in ("query_db", "target_db", "result_db", "output"):
+        p.add_argument(name)
+    _add_search_params(p)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import is_db, load_db
+    from .search.convertalis import (FORMAT_BLAST_TAB_COLUMN_HEADERS,
+                                     format_complex_results, write_output)
+    from .search.profile import (ProfileQueryDB, is_profile_db,
+                                 load_profile_db)
+    from .search.resultdb import read_result_db
+    if is_profile_db(args.query_db):
+        qdb = ProfileQueryDB(load_profile_db(args.query_db))
+    else:
+        qdb = load_db(args.query_db)
+    if args.target_db == args.query_db:
+        tdb = qdb
+    else:
+        # clustered search DB: display against the full _seq DB, which holds
+        # the member entries expanded results point at (the reference resolves
+        # this via the extended dbtype + combined _seq index)
+        seq_path = args.target_db + "_seq"
+        tdb = load_db(seq_path if is_db(seq_path) else args.target_db)
+    with open(args.result_db) as f:
+        first = f.readline()
+    if first.startswith("#foldseek-tpu complexres"):
+        # scoremultimer output: multimer/complex columns available
+        # (reference: the OUTFMT_*COMPLEX* cases only fire on scorecomplex
+        # DBs, structureconvertalis.cpp:700 parseScoreComplexResult)
+        lines = format_complex_results(qdb, tdb,
+                                       read_complex_db(args.result_db),
+                                       args.format_output)
+        with open(args.output, "w") as f:
+            if args.format_mode == FORMAT_BLAST_TAB_COLUMN_HEADERS:
+                f.write(args.format_output.replace(",", "\t") + "\n")
+            for line in lines:
+                f.write(line + "\n")
+        return 0
+    results, has_bt = read_result_db(args.result_db)
+    # the reference always uses a stored backtrace for alnlen/mismatch/
+    # gapopen, whatever the column set (structureconvertalis.cpp:727)
+    write_output(qdb, tdb, results, args.output, fmt=args.format_output,
+                 format_mode=args.format_mode, with_backtrace=has_bt)
+    return 0
+
+
+def _query_target(args):
+    """(query DB, target DB) of a verb: one DB when both paths are equal."""
+    from .db.storage import load_db
+    qdb = load_db(args.query_db)
+    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    return qdb, tdb
+
+
+def cmd_samplemulambda(argv) -> int:
+    """Gumbel mu / lambda of each query from its SW scores against shuffled
+    targets (the SW kernel on --device)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch samplemulambda")
+    for name in ("query_db", "target_db", "output"):
+        p.add_argument(name)
+    p.add_argument("--n-samples", type=int, default=100)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    _add_device(p)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.samplemulambda import sample_mu_lambda
+    device = get_device(args.device)
+    qdb, tdb = _query_target(args)
+    fits = sample_mu_lambda(qdb, tdb, device, n_samples=args.n_samples)
+    with open(args.output, "w") as f:
+        for key in sorted(fits):
+            mu, lam = fits[key]
+            f.write(f"{key}\t{mu:.6f}\t{lam:.6f}\n")
+    return 0
+
+
+def cmd_result2profile(argv) -> int:
+    """AA + 3Di PSSM profiles from a result DB's alignments. Host work
+    only."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch result2profile")
+    for name in ("query_db", "target_db", "result_db", "output_db"):
+        p.add_argument(name)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.profile import result2profile, save_profile_db
+    from .search.resultdb import read_result_db
+    qdb, tdb = _query_target(args)
+    results, _ = read_result_db(args.result_db)
+    profiles = result2profile(qdb, tdb, results)
+    save_profile_db(profiles, args.output_db)
+    logger.info("result2profile: %d profiles -> %s", len(profiles),
+                args.output_db)
+    return 0
+
+
+def _cmd_prefilter(argv, prog: str, default_mode: int) -> int:
+    """Standalone prefilter verbs (reference: the hidden `prefilter` /
+    `ungappedprefilter` base modules the workflow scripts compose). Output:
+    a prefilter result DB of `qkey\\ttkey\\tscore` lines (the k-mer
+    prefilter adds the diagonal). `ungappedprefilter` runs the gapless
+    kernel on --device; `prefilter` is host work and takes no --device."""
+    positionals = ("query_db", "target_db", "result_db")
+    if default_mode == 1:
+        args, params, device = _parse(_parser(prog, positionals), argv)
+    else:
+        p = argparse.ArgumentParser(prog=f"foldseek_tpu_torch {prog}")
+        for name in positionals:
+            p.add_argument(name)
+        _add_search_params(p)
+        args = p.parse_args(argv)
+        set_verbosity(args.verbosity)
+        params = params_from_args(args)
+    import numpy as np
+    qdb, tdb = _query_target(args)
+    with open(args.result_db, "w") as f:
+        f.write("#foldseek-tpu prefres v1\n")
+        if default_mode == 1:
+            from .search.ungapped import UngappedPrefilter
+            pref = UngappedPrefilter(tdb, device)
+            seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
+            for qi, hits in enumerate(pref.query_batch(seqs, params)):
+                for tkey, score in hits:
+                    f.write(f"{int(qdb.keys[qi])}\t{tkey}\t{score}\n")
+        else:
+            from .search.kmer import KmerPrefilter
+            pref = KmerPrefilter(tdb, params, bias_scale=0.15)
+            same_db = qdb.path == tdb.path
+            tkeys = [int(k) for k in tdb.keys]
+            for qi in range(qdb.size):
+                identity = qi if same_db else None
+                hits = pref.query(np.asarray(qdb.get_ss(qi)),
+                                  params.max_seqs, identity)
+                for ti, score, diag in hits:
+                    f.write(f"{int(qdb.keys[qi])}\t{tkeys[ti]}\t{score}\t{diag}\n")
+    return 0
+
+
+def cmd_prefilter(argv) -> int:
+    return _cmd_prefilter(argv, "prefilter", 0)
+
+
+def cmd_ungappedprefilter(argv) -> int:
+    return _cmd_prefilter(argv, "ungappedprefilter", 1)
+
+
+def _cmd_module_align(argv, prog: str, forced_type=None) -> int:
+    """Module-level aligner verbs (structurealign/tmalign/lolalign): re-align
+    an existing result DB's candidate pairs (reference:
+    src/strucclustutils/{structurealign,tmalign}.cpp drivers). The SW kernel
+    of structurealign runs on --device; TM-align and LoLalign are host
+    work."""
+    from .search.pipeline import _align_stage
+    from .search.resultdb import read_result_db, write_result_db
+    args, params, device = _parse(
+        _parser(prog, ("query_db", "target_db", "result_db", "aln_db")), argv)
+    qdb, tdb = _query_target(args)
+    results_in, _ = read_result_db(args.result_db)
+    pref = {qk: [r.db_key for r in rs] for qk, rs in results_in.items()}
+    if forced_type is not None:
+        params.alignment_type = forced_type
+    out = _align_stage(qdb, tdb, pref, params, device,
+                       same_db=args.target_db == args.query_db)
+    write_result_db(out, args.aln_db, add_backtrace=params.add_backtrace)
+    return 0
+
+
+def cmd_structurealign(argv) -> int:
+    return _cmd_module_align(argv, "structurealign")
+
+
+def cmd_tmalign(argv) -> int:
+    return _cmd_module_align(argv, "tmalign", forced_type=1)
+
+
+def cmd_lolalign(argv) -> int:
+    return _cmd_module_align(argv, "lolalign", forced_type=3)
+
+
+def cmd_aln2tmscore(argv) -> int:
+    """TM-score, translation and rotation of each alignment of a result DB
+    (reference: src/strucclustutils/aln2tmscore.cpp). Host work only."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch aln2tmscore")
+    for name in ("query_db", "target_db", "result_db", "output"):
+        p.add_argument(name)
+    p.add_argument("--tmscore-threshold-mode", type=int, default=0)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+
+    from .ops import tmscore as tm_ops
+    from .search.resultdb import read_result_db
+    qdb, tdb = _query_target(args)
+    results, _ = read_result_db(args.result_db)
+    qidx = qdb.key_to_index()
+    tidx = tdb.key_to_index()
+    # output: per query key, lines "targetKey TM t0 t1 t2 u00..u22"
+    # (reference: src/strucclustutils/aln2tmscore.cpp:104-132)
+    with open(args.output, "w") as f:
+        for qkey in sorted(results):
+            qi = qidx[int(qkey)]
+            for r in results[qkey]:
+                norm = tm_ops.normalization(
+                    args.tmscore_threshold_mode,
+                    min(r.q_end - r.q_start, r.t_end - r.t_start),
+                    r.q_len, r.t_len)
+                res = tm_ops.compute_tm_score(
+                    qdb.get_ca(qi), tdb.get_ca(tidx[r.db_key]),
+                    r.q_start, r.t_start, r.backtrace, norm)
+                u = res.u
+                # TM as double "%.3E", t/u as float "%.3f"
+                # (aln2tmscore.cpp:108-130 SSTR specializations,
+                # Util.cpp:667-679)
+                vals = [str(r.db_key), f"{res.tmscore:.3E}"]
+                vals += [f"{float(np.float32(v)):.3f}" for v in res.t]
+                vals += [f"{float(np.float32(u[i][j])):.3f}"
+                         for i in range(3) for j in range(3)]
+                f.write(str(qkey) + "\t" + " ".join(vals) + "\n")
+    return 0
+
+
+def cmd_indexserver(argv) -> int:
+    """Serve a DB's gapless prefilter from panels resident on --device over
+    a unix socket until a client sends `shutdown` (`server.py`)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch indexserver")
+    p.add_argument("db")
+    p.add_argument("socket")
+    p.add_argument("--max-seqs", type=int, default=1000)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    _add_device(p)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .server import serve
+    serve(args.db, args.socket, args.max_seqs, get_device(args.device))
+    return 0
+
+
 def cmd_easy_search(argv) -> int:
     from .search.pipeline import easy_search
     args, params, device = _parse(
@@ -174,8 +542,7 @@ def cmd_search(argv) -> int:
         write_result_db(results, args.result,
                         add_backtrace=params.add_backtrace)
         return 0
-    qdb = load_db(args.query_db)
-    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    qdb, tdb = _query_target(args)
     os.makedirs(args.tmp_dir, exist_ok=True)
     if params.num_iterations > 1:
         # the iterative workflow always aligns with -a
@@ -329,13 +696,11 @@ def write_complex_db(lines, path: str):
 
 
 def cmd_multimersearch(argv) -> int:
-    from .db.storage import load_db
     from .multimer.workflow import multimer_search
     args, params, device = _parse(
         _parser("multimersearch",
                 ("query_db", "target_db", "result_db", "tmp_dir")), argv)
-    qdb = load_db(args.query_db)
-    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    qdb, tdb = _query_target(args)
     write_complex_db(multimer_search(qdb, tdb, params, device,
                                      tmp_dir=args.tmp_dir), args.result_db)
     return 0
@@ -406,9 +771,23 @@ def cmd_easy_multimercluster(argv) -> int:
 
 
 COMMANDS = {
+    "createdb": (cmd_createdb, "Convert PDB/mmCIF files to a structure DB"),
     "easy-search": (cmd_easy_search,
                     "Structure search from files (createdb+search+convertalis)"),
     "search": (cmd_search, "Search a query DB against a target DB"),
+    "convertalis": (cmd_convertalis, "Convert alignment DB to BLAST-tab/HTML formats"),
+    "createindex": (cmd_createindex, "Precompute the device panels + k-mer index"),
+    "indexserver": (cmd_indexserver, "Serve a resident target index over a unix socket"),
+    "gpuserver": (cmd_indexserver, "Alias of indexserver"),
+    "compressca": (cmd_compressca, "Re-encode C-alpha coords as int16 diffs (6 B/residue)"),
+    "prefilter": (cmd_prefilter, "k-mer double-diagonal prefilter to a result DB"),
+    "ungappedprefilter": (cmd_ungappedprefilter, "Device gapless prefilter to a result DB"),
+    "structurealign": (cmd_structurealign, "Re-align a result DB with the dual-alphabet SW aligner"),
+    "tmalign": (cmd_tmalign, "Re-align a result DB with TM-align"),
+    "lolalign": (cmd_lolalign, "Re-align a result DB with LoLalign"),
+    "aln2tmscore": (cmd_aln2tmscore, "TM-score for existing alignment results"),
+    "samplemulambda": (cmd_samplemulambda, "Fit Gumbel mu/lambda from shuffled-target scores"),
+    "result2profile": (cmd_result2profile, "Build AA+3Di PSSM profiles from alignment results"),
     "cluster": (cmd_cluster, "Cluster a structure DB (cascaded set-cover)"),
     "easy-cluster": (cmd_easy_cluster, "Cluster structures from files (createdb+cluster+tsv/fasta)"),
     "createclusearchdb": (cmd_createclusearchdb, "Build a clustered search DB for --cluster-search"),

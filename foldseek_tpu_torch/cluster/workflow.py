@@ -19,7 +19,7 @@ Copy of `foldseek_tpu/cluster/workflow.py` for one process: every align
 stage (the lin stage and each cascade step) is `align_all` on the torch
 device the caller names, so the SW kernel scores its pairs on a card. The
 query-sharded multi-process align branch is not ported (the world size is
-1; `torch.distributed` is ROADMAP queue 1, item 16), so the stage cache is
+1; `torch.distributed` is ROADMAP queue 1, distribution), so the stage cache is
 always on when a tmp dir is given.
 """
 from __future__ import annotations

@@ -9,9 +9,12 @@ padded byte sequences, the index stores
   * the k-mer posting lists of the host prefilter as flat arrays
     (kmer ids + offsets + (seq, pos) entries)
 Both load with mmap so a long-lived index server can share pages across
-processes. Copy of `foldseek_tpu/db/index.py` with the imports rewritten;
-the port reads the posting lists from it (`search/kmer.py`), the panels are
-built by `db/panels.py`.
+processes. Copy of `foldseek_tpu/db/index.py` with the imports rewritten
+and one check added: `load_index` accepts an index only when it describes
+the DB it is asked for (`describes`), so a key-subset view that keeps its
+parent's path (`cluster/workflow.py` `_subdb_view`) builds its own postings
+and panels. The k-mer prefilter reads the posting lists from it
+(`search/kmer.py`), `TorchPanelSet` its bucket panels (`db/panels.py`).
 """
 from __future__ import annotations
 
@@ -89,8 +92,22 @@ class PostingIndex:
         return list(zip(self.seq[s:e].tolist(), self.pos[s:e].tolist()))
 
 
+def describes(manifest: dict, masked_ss: np.ndarray, db: StructDB) -> bool:
+    """Whether the index of `manifest` / `masked_ss` was built from `db`: the
+    same entry count and residue total, and the DB at `db.path` holds the
+    same keys in the same order (a view of a subset, or of a reordered set,
+    keeps its parent's path but not its parent's entries)."""
+    if (manifest.get("n_entries") != db.size
+            or len(masked_ss) != int(db.offsets[-1])):
+        return False
+    keys_path = os.path.join(db.path, "keys.npy")
+    return (os.path.isfile(keys_path) and np.array_equal(
+        np.load(keys_path, mmap_mode="r"), np.asarray(db.keys)))
+
+
 def load_index(db: StructDB) -> Optional[dict]:
-    """Returns {"manifest", "buckets", "postings", "masked_ss"} or None."""
+    """Returns {"manifest", "buckets", "postings", "masked_ss"} or None: None
+    also when the index at `db.path` does not describe `db` (`describes`)."""
     out = index_dir(db.path)
     manifest_path = os.path.join(out, "manifest.json")
     if not os.path.isfile(manifest_path):
@@ -100,6 +117,11 @@ def load_index(db: StructDB) -> Optional[dict]:
     if manifest.get("version") != INDEX_VERSION:
         logger.warning("index version mismatch at %s; ignoring "
                        "(re-run createindex)", out)
+        return None
+    masked_ss = np.load(os.path.join(out, "masked_ss.npy"), mmap_mode="r")
+    if not describes(manifest, masked_ss, db):
+        logger.info("index at %s was built for another entry set; ignoring "
+                    "it for this DB of %d entries", out, db.size)
         return None
     from .panels import Bucket
     buckets = []
@@ -113,5 +135,5 @@ def load_index(db: StructDB) -> Optional[dict]:
         "manifest": manifest,
         "buckets": buckets,
         "postings": PostingIndex(out),
-        "masked_ss": np.load(os.path.join(out, "masked_ss.npy"), mmap_mode="r"),
+        "masked_ss": masked_ss,
     }

@@ -21,7 +21,9 @@ the device, and the per-split top-ks are merged on the host.
 `TorchPanelSet` is the one owner of what a target DB keeps on the device:
 the prefilter takes its panels from it, the alignment stage and
 `--prefilter-mode 3` take the residues, the TM/LDDT gate fleets the C-alpha
-panel. `resident_panels` keeps one DB's set alive between searches.
+panel. `resident_panels` keeps one DB's set alive between searches. A DB with
+a `createindex` artifact that describes it gives its panels from the index
+(`foldseek_tpu/db/panels.py` `PanelSet.from_db(use_index=True)`).
 """
 from __future__ import annotations
 
@@ -159,10 +161,20 @@ class TorchPanelSet:
 
     @property
     def buckets(self) -> List[Bucket]:
+        """The bucket panels: the `createindex` artifact's (memory-mapped,
+        uploaded as they are) when the DB has an index that describes it,
+        else built from the sequences."""
         if self._buckets is None:
+            from .index import load_index
             db = self.db
-            self._buckets = build_buckets(
-                [db.get_ss(i) for i in range(db.size)], db.lengths())
+            idx = load_index(db) if db.path else None
+            if idx is not None:
+                self._buckets = idx["buckets"]
+                logger.info("panels: %d buckets from the index of %s",
+                            len(self._buckets), db.path)
+            else:
+                self._buckets = build_buckets(
+                    [db.get_ss(i) for i in range(db.size)], db.lengths())
         return self._buckets
 
     @property

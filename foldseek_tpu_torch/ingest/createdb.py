@@ -95,7 +95,8 @@ def collect_input_files(inputs: List[str],
     for inp in inputs:
         if inp.startswith(("gs://", "gcs://")):
             raise NotImplementedError(
-                "gs:// inputs are not ported yet (ROADMAP queue 1, item 18)")
+                "gs:// inputs are not ported yet (ROADMAP queue 1, the "
+                "remaining verbs: ingest/gcs.py)")
         elif os.path.isdir(inp):
             for root, _, fnames in os.walk(inp):
                 for fn in sorted(fnames):
@@ -219,7 +220,7 @@ def create_db_prostt5(inputs: List[str], out_path: str,
     (reference: structcreatedb.cpp:697-872 ProstT5 path)."""
     raise NotImplementedError(
         "the ProstT5 createdb path is not ported yet (ROADMAP queue 1, "
-        "item 17)")
+        "ProstT5: nn/prostt5.py)")
 
 
 def create_db(inputs: List[str], out_path: str,

@@ -9,7 +9,7 @@ expansion e-value (1e4) and backtraces -> scoremultimer -> report/m8.
 Copy of `foldseek_tpu/multimer/workflow.py` for one process: the chain
 search and the expand re-align run on the torch device the caller names.
 The query-sharded multi-process branch is not ported (the world size is 1;
-`torch.distributed` is ROADMAP queue 1, item 16).
+`torch.distributed` is ROADMAP queue 1, distribution).
 """
 from __future__ import annotations
 

@@ -39,17 +39,9 @@ def ensure_db(path_or_input: str, tmp_dir: str, tag: str) -> StructDB:
     return create_db([path_or_input], db_path)
 
 
-def check_supported(params: SearchParams) -> None:
-    """Raise NotImplementedError for what this port does not cover yet."""
-    if params.index_server:
-        raise NotImplementedError(
-            "--index-server is not ported yet (ROADMAP queue 1, item 15)")
-
-
 def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
            device: torch.device, same_db: Optional[bool] = None,
            tmp_dir: Optional[str] = None) -> Dict[int, List[AlnResult]]:
-    check_supported(params)
     if same_db is None:
         same_db = qdb.path == tdb.path
     cache = make_cache(tmp_dir, params, qdb, tdb)
@@ -239,7 +231,6 @@ def iterative_search(qdb: StructDB, tdb: StructDB, params: SearchParams,
 def easy_search(query_input: str, target_input: str, out_path: str,
                 tmp_dir: str, params: SearchParams,
                 device: torch.device) -> List[str]:
-    check_supported(params)
     os.makedirs(tmp_dir, exist_ok=True)
     qdb = ensure_db(query_input, tmp_dir, "query")
     same_input = os.path.abspath(query_input) == os.path.abspath(target_input)

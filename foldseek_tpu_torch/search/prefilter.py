@@ -7,9 +7,11 @@
   search/ungapped.py.
 * EXHAUSTIVE (mode 2 or --exhaustive-search) — every query paired with every
   target in key order.
+* INDEX SERVER (`--index-server <socket>`, wins over every mode as in
+  `foldseek_tpu`) — one round trip to a running `indexserver` that holds the
+  target DB's panels on its device (`server.py`).
 Mode 3 (ungapped + gapped, results without the align stage) is dispatched by
-`search/pipeline.py` before this stage. The index server is not ported
-(`check_supported` in `search/pipeline.py` refuses it).
+`search/pipeline.py` before this stage, with or without a server.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ def exhaustive_prefilter(qdb: StructDB, tdb: StructDB) -> Dict[int, List[int]]:
 
 def run_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
                   device: torch.device) -> Dict[int, List[int]]:
+    if params.index_server:
+        from ..server import server_prefilter
+        return server_prefilter(qdb, params.index_server, params.max_seqs)
     if params.exhaustive_search or params.prefilter_mode == PREF_MODE_EXHAUSTIVE:
         return exhaustive_prefilter(qdb, tdb)
     if params.prefilter_mode == PREF_MODE_UNGAPPED:

@@ -100,6 +100,11 @@ class UngappedPrefilter:
             self.panels.total_bytes / 1e6, self.device,
             len(self.panels.splits))
 
+    def query(self, q_ss: np.ndarray, params: SearchParams) -> List[tuple]:
+        """[(target_key, score)] of one query, gated and sorted by the
+        reference's rules (the index server's `query` command)."""
+        return self.query_batch([q_ss], params)[0]
+
     def query_batch(self, seqs: Sequence[np.ndarray],
                     params: SearchParams) -> List[List[tuple]]:
         """[(target_key, score)] per query, gated and sorted by the

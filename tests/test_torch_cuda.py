@@ -528,3 +528,67 @@ def test_rbh_and_multimer_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     assert out["cuda", "rbh"] == out["cpu", "rbh"] and out["cpu", "rbh"]
     assert out["cuda", "multimer"] == out["cpu", "multimer"]
     assert sum(len(v) for v in out["cpu", "multimer"].values()) >= qdb.size
+
+
+# --- the index server and the stage verbs on the card -------------------------
+
+def test_index_server_on_card_matches_in_process(cuda, tmp_path, monkeypatch):
+    """`serve` on cuda in a thread answers `query_batch` as the in-process
+    prefilter on cuda does, with gapless launches; `search --index-server`
+    gives the in-process search's m8 (host gates)."""
+    import os
+    import tempfile
+    import threading
+    import time
+
+    from foldseek_tpu_torch import server
+    from foldseek_tpu_torch.search import SearchParams, format_results
+    from foldseek_tpu_torch.search.pipeline import search
+    from foldseek_tpu_torch.search.ungapped import UngappedPrefilter
+    tdb, qdb = _fixture_dbs(tmp_path, 400, 4)
+    sock = os.path.join(tempfile.mkdtemp(prefix="fs"), "s.sock")
+    before = tg.gapless_scores_batch.launches
+    thread = threading.Thread(target=server.serve,
+                              args=(tdb.path, sock, 1000, "cuda"), daemon=True)
+    thread.start()
+    while not os.path.exists(sock):
+        time.sleep(0.1)
+    seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
+    client = server.IndexServerClient(sock)
+    got = client.query_batch(seqs)
+    client.close()
+    assert tg.gapless_scores_batch.launches > before
+    assert got == UngappedPrefilter(tdb, cuda).query_batch(seqs,
+                                                           SearchParams())
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    lines = [format_results(qdb, tdb, search(
+        qdb, tdb, SearchParams(prefilter_mode=1, add_backtrace=True,
+                               index_server=served), cuda, same_db=False),
+        SearchParams().format_output, with_backtrace=True)
+        for served in (sock, "")]
+    client = server.IndexServerClient(sock)
+    client.shutdown()
+    client.close()
+    thread.join(timeout=60)
+    assert not os.path.exists(sock)
+    assert lines[0] == lines[1] and len(lines[0]) > 20
+
+
+def test_structurealign_verb_on_card_matches_cpu(cuda, tmp_path):
+    """The `structurealign -a` verb over a result DB writes the same bytes
+    on cuda as on cpu, and launches the SW kernel on cuda."""
+    from foldseek_tpu_torch.cli import main
+    tdb, qdb = _fixture_dbs(tmp_path, 300, 3)
+    res = str(tmp_path / "res")
+    assert main(["search", qdb.path, tdb.path, res, str(tmp_path / "tmp"),
+                 "--gpu", "1", "--device", "cpu", "-v", "1"]) == 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = tk.sw_scores_pairs.launches
+        path = str(tmp_path / f"aln_{dev}")
+        assert main(["structurealign", qdb.path, tdb.path, res, path, "-a",
+                     "--device", dev, "-v", "1"]) == 0
+        torch.cuda.synchronize()
+        assert (tk.sw_scores_pairs.launches > before) == (dev == "cuda")
+        out[dev] = open(path, "rb").read()
+    assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 20

@@ -10,6 +10,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from dataclasses import replace
 
 import numpy as np
@@ -403,7 +404,7 @@ def test_cli_refuses_missing_cuda_and_unknown_verbs(tmp_path):
     proc = _run_port_cli(["easy-search", "q", "t", "o", "tmp", "--gpu", "1"],
                          cwd=str(tmp_path))
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
-    assert _run_port_cli(["createdb", "x", "y"], cwd=str(tmp_path)).returncode == 1
+    assert _run_port_cli(["databases", "x", "y"], cwd=str(tmp_path)).returncode == 1
 
 
 def _imported_roots(path):
@@ -436,28 +437,53 @@ def test_port_sources_import_neither_package():
 
 
 def test_port_never_imports_jax(golden_dir, tmp_path):
-    """Importing every module of the port, then a CPU easy-search through its
-    CLI, leaves neither jax nor any foldseek_tpu module in sys.modules."""
+    """Importing every module of the port, then through its CLI on the CPU
+    an easy-search, createdb, createindex, an indexserver round trip (a
+    served search) and convertalis, leaves neither jax nor any foldseek_tpu
+    module in sys.modules."""
     inputs = _fixture_inputs(golden_dir)
-    code = ("import importlib, pkgutil, sys\n"
+    sock_dir = tempfile.mkdtemp(prefix="fs")
+    if len(sock_dir) > 90:
+        shutil.rmtree(sock_dir)
+        sock_dir = tempfile.mkdtemp(prefix="fs", dir="/tmp")
+    db, sock = str(tmp_path / "db"), os.path.join(sock_dir, "s.sock")
+    cpu = "'--device', 'cpu', '-v', '1'"
+    code = ("import importlib, os, pkgutil, sys, threading, time\n"
             "import foldseek_tpu_torch as p\n"
             "from foldseek_tpu_torch.cli import main\n"
+            "from foldseek_tpu_torch.server import IndexServerClient\n"
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'foldseek_tpu_torch.')"
             " if not m.name.endswith('__main__')]\n"
             "for n in names: importlib.import_module(n)\n"
-            f"rc = main(['easy-search', {inputs[0]!r}, {inputs[1]!r}, "
+            f"rc = [main(['easy-search', {inputs[0]!r}, {inputs[1]!r}, "
             f"{str(tmp_path / 'o.m8')!r}, {str(tmp_path / 'tmp')!r}, "
-            "'--gpu', '1', '--device', 'cpu', '-v', '1'])\n"
+            f"'--gpu', '1', {cpu}])]\n"
+            f"rc.append(main(['createdb', *{inputs!r}, {db!r}, '-v', '1']))\n"
+            f"rc.append(main(['createindex', {db!r}, '-v', '1']))\n"
+            "t = threading.Thread(target=main, args=(['indexserver', "
+            f"{db!r}, {sock!r}, {cpu}],))\n"
+            "t.start()\n"
+            f"while not os.path.exists({sock!r}): time.sleep(0.1)\n"
+            f"rc.append(main(['search', {db!r}, {db!r}, {db + '_res'!r}, "
+            f"{str(tmp_path / 'tmp2')!r}, '--index-server', {sock!r}, {cpu}]))\n"
+            f"c = IndexServerClient({sock!r}); c.shutdown(); c.close(); t.join()\n"
+            f"rc.append(main(['convertalis', {db!r}, {db!r}, {db + '_res'!r}, "
+            f"{str(tmp_path / 'res.m8')!r}, '-v', '1']))\n"
             "bad = sorted(k for k in sys.modules if k in ('jax', 'foldseek_tpu')"
             " or k.startswith(('jax.', 'foldseek_tpu.')))\n"
-            "print(len(names), rc, bad)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
-                          capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ, PYTHONPATH=REPO))
+            "print(len(names), sum(rc), bad)\n")
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=REPO,
+                                       FOLDSEEK_TPU_FORK="0"))
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
     assert proc.returncode == 0, proc.stderr
     n, rc, bad = proc.stdout.strip().split(" ", 2)
     assert int(n) >= 35 and rc == "0" and bad == "[]"
     assert (tmp_path / "o.m8").read_text().count("\n") >= 1
+    assert (tmp_path / "res.m8").read_text().count("\n") >= 17
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -470,15 +496,15 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_only_chip_smoke_reaches_the_v1_kernels():
-    """The kernels of the version before (csrc/*_v1.cu) are kept for timing:
-    no module of the port names them; chip_smoke.py does."""
+    """The kernels of the version before the Hopper redesign (csrc/*_v1.cu)
+    are gone with the timing turns that kept them: csrc/ holds the two
+    kernel sources and their shared header, and no source of the port, nor
+    chip_smoke.py, names a `_v1` kernel."""
+    csrc = os.path.join(REPO, "foldseek_tpu_torch", "csrc")
+    assert sorted(os.listdir(csrc)) == ["dp_common.cuh", "gapless.cu", "sw.cu"]
     for path in _port_sources():
         with open(path) as f:
-            names_v1 = "_v1" in f.read()
-        assert names_v1 == path.endswith("chip_smoke.py"), path
-    csrc = os.path.join(REPO, "foldseek_tpu_torch", "csrc")
-    assert {"gapless.cu", "sw.cu", "gapless_v1.cu", "sw_v1.cu",
-            "dp_common.cuh"} <= set(os.listdir(csrc))
+            assert "_v1" not in f.read(), path
 
 
 def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
@@ -510,10 +536,11 @@ def test_get_device():
     dict(num_iterations=2), dict(alignment_type=1), dict(alignment_type=3),
     dict(index_server="index.sock"), "device_gates"])
 def test_unported_modes_raise(dbs, change, monkeypatch, tmp_path):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item (--index-server); the modes ported since (the k-mer prefilter,
-    --cluster-search over a createclusearchdb triple, iterative search,
-    alignment types 1 and 3, the device gates) run and return hits."""
+    """The modes once refused as not ported run and return hits: the k-mer
+    prefilter, --cluster-search over a createclusearchdb triple, iterative
+    search, alignment types 1 and 3, the device gates, and --index-server
+    (a round trip through the target DB served on the CPU, whose records
+    equal the in-process search's)."""
     tdb, qdb = dbs[1].tdb, dbs[1].qdb
     params = replace(SearchParams(**GPU_KW), max_seqs=20)
     monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")   # a JAX client lives here
@@ -522,8 +549,36 @@ def test_unported_modes_raise(dbs, change, monkeypatch, tmp_path):
     else:
         params = replace(params, **change)
     if change != "device_gates" and "index_server" in change:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.search(qdb, tdb, params, CPU, same_db=False)
+        import threading
+        import time
+
+        from foldseek_tpu_torch import server as tserver
+        sock_dir = tempfile.mkdtemp(prefix="fs")
+        if len(sock_dir) > 90:
+            shutil.rmtree(sock_dir)
+            sock_dir = tempfile.mkdtemp(prefix="fs", dir="/tmp")
+        sock = os.path.join(sock_dir, "s.sock")
+        thread = threading.Thread(target=tserver.serve,
+                                  args=(tdb.path, sock, 1000, "cpu"),
+                                  daemon=True)
+        thread.start()
+        try:
+            while not os.path.exists(sock):
+                time.sleep(0.1)
+            res = tpipe.search(qdb, tdb, replace(params, index_server=sock),
+                               CPU, same_db=False)
+            client = tserver.IndexServerClient(sock)
+            client.shutdown()
+            client.close()
+            thread.join(timeout=60)
+        finally:
+            shutil.rmtree(sock_dir, ignore_errors=True)
+        local = tpipe.search(qdb, tdb, replace(params, index_server=""), CPU,
+                             same_db=False)
+        lines = format_results(qdb, tdb, res, M8, with_backtrace=True)
+        assert lines == format_results(qdb, tdb, local, M8,
+                                       with_backtrace=True)
+        assert len(lines) >= qdb.size
         return
     if change != "device_gates" and "cluster_search" in change:
         from foldseek_tpu_torch.search.clusearch import create_clusearch_db
@@ -531,7 +586,6 @@ def test_unported_modes_raise(dbs, change, monkeypatch, tmp_path):
         tdb = create_clusearch_db(
             tdb, {keys[i]: keys[i:i + 4] for i in range(0, len(keys), 4)},
             str(tmp_path / "clu"))
-    tpipe.check_supported(params)
     if change != "device_gates" and "num_iterations" in change:
         res = tpipe.iterative_search(qdb, tdb, params, 2, CPU, same_db=False)
     else:
