@@ -93,6 +93,25 @@ Phases (any failure exits nonzero and prints no result line):
      cpu: ungappedprefilter, `search --gpu 1 --max-seqs 50`, structurealign
      -a over it, samplemulambda, convertalis in format modes 0-5, and a
      `search --index-server` through a server on each side's device.
+ 13. ProstT5 (`createdb --prostt5-model`, no kernel of its own: plain
+     PyTorch): (a) the relative-position bucket table on the card equals the
+     CPU's for T <= 4096; (b) the release width with 2 layers from seeded
+     weights, four sequences of 50-1,000 residues: float32 on the card
+     within 1e-4 of float32 on the CPU, bfloat16 (cuBLAS's reduced-precision
+     bf16 reduction as it stands, then off) by the margin rule: letters
+     equal wherever the CPU's top-two margin exceeds twice the max
+     |dlogit|; (c) the full release model (24 layers, d_model 1024) from
+     weights drawn on the card, written as an f16 GGUF by the port's writer
+     (timed), then `createdb --prostt5-model` through the command line over
+     the AA strings of 1,984 target entries and the queries joined into 16
+     sequences of 500-2,000 residues: the load, seconds, tokens and peak
+     memory of each pad bucket, tokens/s and the share of the bound (two
+     operations per matmul parameter and token plus the attention products,
+     over the dense bf16 peak); (d) a ProstT5 DB of the queries' AA strings,
+     `search --gpu 1 -a` of it against the target DB and against itself,
+     both kernels counted, convertalis; (e) that DB against the parity DB
+     and against itself, m8 on cuda == m8 on cpu byte for byte. Its numbers
+     are the line before the kernels' line.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
@@ -100,10 +119,10 @@ Phases (any failure exits nonzero and prints no result line):
      length, a stack whose caps force the 32-bit gapless instance.
 ptxas's registers, shared memory and spills of every instance are copied
 from the nvcc logs; a spill fails the run.
-The line before the card's line is a JSON object with each kernel's
-launches, error, times and bound; the last line is {"ok": true, "device":
-{...}}. Details go to DIR/chip_smoke.json and DIR/nvcc_*.log (default
-foldseek_tpu_torch/build/smoke/, which git ignores).
+Before the card's line come three JSON lines: the gates', phase 13's, and
+each kernel's launches, error, times and bound; the last line is {"ok":
+true, "device": {...}}. Details go to DIR/chip_smoke.json and
+DIR/nvcc_*.log (default foldseek_tpu_torch/build/smoke/, which git ignores).
 
 The bound of a kernel is the larger of two times: the bytes it must move
 (each input read once, each output written once) over the card's memory
@@ -618,8 +637,11 @@ def m8_bytes(qdb, tdb, results) -> bytes:
     return ("\n".join(lines) + "\n").encode()
 
 
-def check_lines(lines, qdb):
-    """Every query finds hits; the m8 columns parse and are in range."""
+def check_lines(lines, qdb, every_query: bool = True, min_bits: int = 0):
+    """Every query (or with every_query False, some query) finds hits; the
+    m8 columns parse and are in range (bits from min_bits: a hit of 3Di
+    predicted by random weights can score below 0 bits and still pass the
+    E-value, whose Gumbel parameters come from the query's 3Di)."""
     import math
     seen = set()
     for line in lines:
@@ -629,10 +651,10 @@ def check_lines(lines, qdb):
         seen.add(f[0])
         fident, ev = float(f[2]), float(f[10])
         if not (0.0 <= fident <= 1.0 and math.isfinite(ev) and ev >= 0
-                and int(f[11]) >= 0 and 1 <= int(f[6]) <= int(f[7])
+                and int(f[11]) >= min_bits and 1 <= int(f[6]) <= int(f[7])
                 and 1 <= int(f[8]) <= int(f[9])):
             raise AssertionError(f"out-of-range m8 line: {line!r}")
-    if len(seen) != qdb.size:
+    if len(seen) != qdb.size and (every_query or not seen):
         raise AssertionError(f"{qdb.size - len(seen)} queries without hits")
 
 
@@ -1834,6 +1856,360 @@ def phase_parity(dev, base, pdb, qdb, work, report):
         host_cpu, res_gpu, f"parity mode 1, {pdb.size} targets: device gates "
                            "on cuda vs host gates on cpu")
 
+# --- ProstT5: createdb --prostt5-model and its sequence-only DBs -------------
+
+BF16_PER_S = 989e12            # H100 SXM data sheet, dense bf16 tensor cores
+# (b): sequences of the 2-layer release-width model, card against CPU
+PROSTT5_CHECK_LENGTHS = (50, 333, 667, 1000)
+PROSTT5_F32_TOL = 1e-4
+# (c): target entries the full model predicts, 248 batches of 8, beside the
+# 16 queries joined into sequences of 500-2,000 residues (the 1,024 and
+# 2,048 pad buckets)
+PROSTT5_FASTA_ENTRIES = 1_984
+PROSTT5_JOINED_LENGTHS = (500, 571, 642, 714, 785, 857, 928, 1000,
+                          1100, 1228, 1357, 1485, 1614, 1742, 1871, 2000)
+
+
+def prostt5_flops(cfg, n: int) -> float:
+    """Operations of the encoder on one sequence of n tokens: two per matmul
+    parameter and token, and the two attention products over n keys
+    (4 n H d_kv a token and layer)."""
+    inner = cfg.num_heads * cfg.d_kv
+    params = cfg.num_layers * (4 * cfg.d_model * inner
+                               + 2 * cfg.d_model * cfg.d_ff)
+    return 2.0 * params * n + 4.0 * n * n * inner * cfg.num_layers
+
+
+def prostt5_buckets(seqs, batch_size: int = 8) -> dict:
+    """ProstT5.predict's batches by pad length: {T: [tokens of each
+    sequence]} (sorted by length, batches of 8, the next power of two of at
+    least 16 tokens)."""
+    lens = sorted(len(s) + 2 for s in seqs)
+    out = {}
+    for start in range(0, len(lens), batch_size):
+        batch = lens[start:start + batch_size]
+        T = max(16, 1 << (max(batch) - 1).bit_length())
+        out.setdefault(T, []).extend(batch)
+    return out
+
+
+def prostt5_random_params(cfg, dev, seed: int):
+    """The tree of `init_random_params` (normal values times 0.02, norms of
+    ones), drawn on `dev` from a seeded torch.Generator: numpy's RandomState
+    takes too long for 1.2 B values."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).mul_(0.02)
+
+    def ones(n):
+        return torch.ones(n, device=dev)
+    inner = cfg.num_heads * cfg.d_kv
+    return {
+        "embed": r(cfg.vocab_size, cfg.d_model),
+        "final_norm": ones(cfg.d_model),
+        "rel_bias": r(cfg.rel_buckets, cfg.num_heads),
+        "layers": [dict(attn_norm=ones(cfg.d_model),
+                        wq=r(cfg.d_model, inner), wk=r(cfg.d_model, inner),
+                        wv=r(cfg.d_model, inner), wo=r(inner, cfg.d_model),
+                        ffn_norm=ones(cfg.d_model),
+                        ffn_up=r(cfg.d_model, cfg.d_ff),
+                        ffn_down=r(cfg.d_ff, cfg.d_model))
+                   for _ in range(cfg.num_layers)],
+        "conv0_w": r(cfg.conv_hidden, cfg.d_model, 1, 7),
+        "conv0_b": r(cfg.conv_hidden),
+        "conv3_w": r(cfg.n_states, cfg.conv_hidden, 1, 7),
+        "conv3_b": r(cfg.n_states)}
+
+
+def device_ms_by_kind(prof, top: int = 12) -> dict:
+    """The device's milliseconds in a profile taken with the CUDA activity
+    alone, by kind: matrix products (cuBLAS / CUTLASS kernels, cuBLAS's
+    `nvjet` ones included), copies and fills, every other kernel; the count
+    of kernels; and the `top` kernel names by milliseconds, each with its
+    launches."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    out = dict(gemm=0.0, copy=0.0, other=0.0, kernels=0)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        name = e.name()
+        low = name.lower()
+        kind = ("copy" if "memcpy" in low or "memset" in low else
+                "gemm" if any(k in low for k in ("gemm", "cutlass", "xmma",
+                                                 "nvjet", "sm90_", "cublas"))
+                else "other")
+        ms = e.duration_ns() / 1e6
+        out[kind] += ms
+        out["kernels"] += kind != "copy"
+        entry = by_name.setdefault(name[:120], [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    out["top"] = [dict(name=n, ms=v[0], launches=v[1]) for n, v in
+                  sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
+
+
+def write_fasta(path: str, records) -> str:
+    with open(path, "w") as f:
+        for name, seq in records:
+            f.write(f">{name}\n{seq}\n")
+    return path
+
+
+def prostt5_card_vs_cpu(dev, cfg, rec):
+    """(b): the encoder of `cfg` from seeded host weights, on the card in
+    float32 (within PROSTT5_F32_TOL of the CPU's float32) and in bfloat16,
+    with cuBLAS's reduced-precision bf16 reduction as it stands and off
+    (letters by the margin rule against the CPU's float32)."""
+    import numpy as np
+    import torch
+
+    from foldseek_tpu_torch.nn import prostt5 as P
+    from foldseek_tpu_torch.nn.gguf_writer import default_vocab
+    params = P.init_random_params(cfg, seed=11)
+    token_id = {t: i for i, t in enumerate(default_vocab(cfg.vocab_size))}
+    rng = np.random.RandomState(13)
+    seqs = ["".join(rng.choice(list(P.THREE_DI), n))
+            for n in PROSTT5_CHECK_LENGTHS]
+    cpu = P.ProstT5(cfg=cfg, params=params, token_id=token_id, device="cpu",
+                    dtype=torch.float32)
+    tokens, mask = cpu.batch(seqs)
+    valid = torch.zeros(len(seqs), tokens.shape[1] - 1, dtype=torch.bool)
+    for row, seq in enumerate(seqs):
+        valid[row, :len(seq)] = True
+    t0 = time.perf_counter()
+    want = cpu.encoder(tokens, mask)[valid]
+    rec["cpu_f32_seconds"] = time.perf_counter() - t0
+    del cpu
+
+    def on_card(dtype):
+        enc = P.ProstT5Encoder(cfg, P.params_from_numpy(cfg, params, dev,
+                                                        dtype))
+        return enc(tokens.to(dev), mask.to(dev))[valid.to(dev)].cpu()
+
+    rec["f32_max_abs_dlogit"] = float((on_card(torch.float32) - want)
+                                      .abs().max())
+    log(f"ProstT5 (b) {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"lengths {PROSTT5_CHECK_LENGTHS}: float32 on the card vs the CPU, "
+        f"max |dlogit| {rec['f32_max_abs_dlogit']:.3g}")
+    if not rec["f32_max_abs_dlogit"] <= PROSTT5_F32_TOL:
+        raise AssertionError("ProstT5 float32 on the card differs from the "
+                             f"CPU by more than {PROSTT5_F32_TOL}")
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    rec["bf16_reduced_precision_reduction_default"] = default
+    top2 = want.topk(2, -1).values
+    margin = top2[:, 0] - top2[:, 1]
+    for name, flag in (("bf16", default), ("bf16_no_reduced_reduction", False)):
+        matmul.allow_bf16_reduced_precision_reduction = flag
+        try:
+            got = on_card(torch.bfloat16)
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = default
+        d = float((got - want).abs().max())
+        differ = got.argmax(-1) != want.argmax(-1)
+        rec[name] = dict(max_abs_dlogit=d, residues=len(want),
+                         letters_differ=int(differ.sum()),
+                         in_band=int((margin <= 2 * d).sum()))
+        log(f"ProstT5 (b) {name} (reduced-precision reduction {flag}) vs CPU "
+            f"float32: {rec[name]}")
+        if (differ & (margin > 2 * d)).any():
+            raise AssertionError(f"ProstT5 {name}: a letter differs outside "
+                                 "the margin band")
+
+
+def phase_prostt5(dev, tdb, qdb, pdb, work, report, cfg=None):
+    """13. ProstT5: (a) the bucket table on the card equals the CPU's for
+    T <= 4096; (b) prostt5_card_vs_cpu at the release width with 2 layers;
+    (c) the full release model (`cfg`, default 24 layers, d_model 1024) from
+    seeded weights drawn on the card, written as an f16 GGUF (timed), then
+    `createdb --prostt5-model` through the command line over the AA strings
+    of PROSTT5_FASTA_ENTRIES target entries and the queries joined into 16
+    long sequences: seconds, tokens and peak memory per pad bucket beside the
+    bound; (d) a ProstT5 DB of the queries' AA strings, `search --gpu 1 -a`
+    of it against the target DB and against itself (both kernels counted,
+    the gapless kernel must launch in both, the SW kernel in the search
+    against itself), convertalis; (e) the ProstT5 DB against the parity DB
+    and against itself on cuda and on cpu, byte for byte. Returns the
+    launches of (d)'s two searches by path."""
+    import torch
+
+    from foldseek_tpu_torch.db import load_db
+    from foldseek_tpu_torch.nn import prostt5 as P
+    from foldseek_tpu_torch.nn.gguf_writer import write_prostt5_gguf
+    from foldseek_tpu_torch.search import (snapshot_stage_counts,
+                                           snapshot_stage_times)
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    cfg = cfg or P.ProstT5Config()
+    rec = report["prostt5"] = dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                                   d_ff=cfg.d_ff, heads=cfg.num_heads)
+    d = os.path.join(work, "prostt5")
+    os.makedirs(d)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls; the encoder's "
+                             "float32 products need it off")
+    # (a)
+    for T in (16, 1024, 4096):
+        if not torch.equal(P.bucket_table(T, cfg, dev).cpu(),
+                           P.bucket_table(T, cfg, "cpu")):
+            raise AssertionError(f"ProstT5 bucket table differs at T={T}")
+    rec["bucket_table_exact_to"] = 4096
+    # (b)
+    prostt5_card_vs_cpu(dev, P.ProstT5Config(**{**cfg.__dict__,
+                                                "num_layers": 2}), rec)
+    # (c)
+    gguf = os.path.join(d, "release.gguf")
+    t0 = time.perf_counter()
+    params = prostt5_random_params(cfg, dev, seed=7)
+    torch.cuda.synchronize()
+    rec["weights_seconds"] = time.perf_counter() - t0
+    rec["matmul_params"] = sum(int(t.numel()) for layer in params["layers"]
+                               for t in layer.values() if t.dim() == 2)
+    t0 = time.perf_counter()
+    write_prostt5_gguf(gguf, cfg, params, f16_weights=True)
+    rec["gguf_write_seconds"] = time.perf_counter() - t0
+    rec["gguf_bytes"] = os.path.getsize(gguf)
+    del params
+    torch.cuda.empty_cache()
+    q_strs = [qdb.get_aa_str(i).upper() for i in range(qdb.size)]
+    joined = []
+    for j, n in enumerate(PROSTT5_JOINED_LENGTHS):
+        seq = "".join(q_strs[j % len(q_strs):] + q_strs[:j % len(q_strs)])
+        while len(seq) < n:
+            seq += seq
+        joined.append((f"joined_{j}", seq[:n]))
+    records = [(tdb.names[i], tdb.get_aa_str(i).upper())
+               for i in range(min(PROSTT5_FASTA_ENTRIES, tdb.size))] + joined
+    fasta = write_fasta(os.path.join(d, "entries.fasta"), records)
+    out = os.path.join(d, "entries_prostt5")
+    reset_counts(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli("createdb", fasta, out, "--prostt5-model", gguf, "--device", dev)
+        torch.cuda.synchronize()
+        rec["createdb_seconds"] = time.perf_counter() - t0
+    rec["device_ms"] = device_ms_by_kind(prof)
+    rec["createdb_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    stages, counts = snapshot_stage_times(), snapshot_stage_counts()
+    rec["gguf_load_seconds"] = stages["prostt5_load"]
+    want_buckets = prostt5_buckets([s for _, s in records])
+    buckets, real, padded, predict_s, bound_s = {}, 0, 0, 0.0, 0.0
+    for T in sorted(want_buckets):
+        label = f"prostt5_T{T}"
+        lens = want_buckets[T]
+        b = dict(batches=len(counts[label + "_rows"]),
+                 rows=sum(counts[label + "_rows"]),
+                 tokens=sum(counts[label + "_tokens"]),
+                 padded_tokens=sum(counts[label + "_rows"]) * T,
+                 seconds=stages[label],
+                 peak_bytes=max(counts.get(label + "_peak_bytes", [0])),
+                 bound_ms=sum(prostt5_flops(cfg, n) for n in lens)
+                 / BF16_PER_S * 1e3)
+        if (b["rows"], b["tokens"]) != (len(lens), sum(lens)):
+            raise AssertionError(f"ProstT5 bucket {T}: {b} is not the "
+                                 "batching of the FASTA")
+        b["ms_per_batch"] = b["seconds"] / b["batches"] * 1e3
+        b["share_of_bound"] = b["bound_ms"] / (b["seconds"] * 1e3)
+        buckets[str(T)] = b
+        real += b["tokens"]
+        padded += b["padded_tokens"]
+        predict_s += b["seconds"]
+        bound_s += b["bound_ms"] / 1e3
+    rec.update(buckets=buckets, tokens=real, padded_tokens=padded,
+               predict_seconds=predict_s, tokens_per_s=real / predict_s,
+               padded_tokens_per_s=padded / predict_s, bound_seconds=bound_s,
+               share_of_bound=bound_s / predict_s)
+    db = load_db(out)
+    by_name = dict(records)
+    if db.size != len(records) or any(
+            db.entry_len(i) != len(by_name[db.names[i]])
+            or db.get_aa_str(i) != by_name[db.names[i]]
+            for i in range(db.size)):
+        raise AssertionError("the ProstT5 DB does not hold the FASTA's "
+                             "entries")
+    if db.ca is not None or not (0 <= int(db.ss.min())
+                                 and int(db.ss.max()) < cfg.n_states):
+        raise AssertionError("the ProstT5 DB holds C-alpha data or states "
+                             "outside the 3Di alphabet")
+    log(f"ProstT5 (c) {cfg.num_layers} layers, d_model {cfg.d_model}: GGUF "
+        f"write {rec['gguf_write_seconds']:.1f} s ({rec['gguf_bytes']} B), "
+        f"load {rec['gguf_load_seconds']:.1f} s, createdb of {db.size} "
+        f"entries {rec['createdb_seconds']:.1f} s, {real} tokens "
+        f"({padded} padded) in {predict_s:.2f} s: {rec['tokens_per_s']:.0f} "
+        f"tokens/s, {rec['share_of_bound']:.3f} of the bound, peak "
+        f"{rec['createdb_peak_bytes'] / 2**30:.2f} GiB; device ms under the "
+        f"profiler's CUDA activity: {rec['device_ms']}")
+    for T, b in buckets.items():
+        log(f"  T={T}: {b['batches']} batches, {b['ms_per_batch']:.1f} ms a "
+            f"batch, bound {b['bound_ms']:.1f} ms of {b['seconds'] * 1e3:.1f}"
+            f", peak {b['peak_bytes'] / 2**30:.2f} GiB")
+    # (d)
+    seq_db = os.path.join(d, "queries_prostt5")
+    write_fasta(os.path.join(d, "queries.fasta"),
+                [(qdb.names[i], qdb.get_aa_str(i)) for i in range(qdb.size)])
+    cli("createdb", os.path.join(d, "queries.fasta"), seq_db,
+        "--prostt5-model", gguf, "--device", dev)
+    os.remove(gguf)
+    sdb = load_db(seq_db)
+    paths = {}
+    for name, target, every_query in (("prostt5", tdb, False),
+                                      ("prostt5_self", sdb, True)):
+        res = os.path.join(d, name)
+        _, seconds, launches = counted(
+            dev, f"ProstT5 (d) search --gpu 1 -a of the ProstT5 DB against "
+                 f"{target.size} entries",
+            lambda: cli("search", seq_db, target.path, res, res + "_tmp",
+                        "--gpu", "1", "-a", "--device", dev))
+        cli("convertalis", seq_db, target.path, res, res + ".m8")
+        with open(res + ".m8") as f:
+            lines = f.read().splitlines()
+        rec[name] = dict(seconds=seconds, launches=launches,
+                         targets=target.size, hits=len(lines),
+                         queries_with_hits=len({ln.split("\t")[0]
+                                                for ln in lines}))
+        log(f"  {rec[name]}")
+        paths[name] = launches
+        # random weights predict 3Di that need not resemble the targets'
+        # (the prefilter scores 3Di alone): against the structure DB a query
+        # may find nothing, against its own DB each finds itself
+        if lines or every_query:
+            check_lines(lines, sdb, every_query, min_bits=-(2 ** 31))
+        if not launches["gapless"] > 0 or (every_query
+                                           and not launches["sw"] > 0):
+            raise AssertionError(f"{name}: a kernel did not launch: "
+                                 f"{launches}")
+    # (e)
+    lines = 0
+    for name, target in (("parity", pdb), ("parity_self", sdb)):
+        m8 = {}
+        for side, device in (("cuda", dev), ("cpu", "cpu")):
+            res = os.path.join(d, f"{name}_{side}")
+            t0 = time.perf_counter()
+            cli("search", seq_db, target.path, res, res + "_tmp", "--gpu",
+                "1", "-a", "--device", device)
+            cli("convertalis", seq_db, target.path, res, res + ".m8")
+            m8[side] = (read_bytes(res + ".m8"), time.perf_counter() - t0)
+        rec[name] = dict(entries=target.size,
+                         lines=m8["cpu"][0].count(b"\n"),
+                         identical=m8["cuda"][0] == m8["cpu"][0],
+                         cuda_seconds=m8["cuda"][1], cpu_seconds=m8["cpu"][1])
+        log(f"ProstT5 (e) {name}, {target.size} entries: {rec[name]}")
+        if not rec[name]["identical"]:
+            raise AssertionError(f"ProstT5 {name}: the m8 on cuda differs "
+                                 "from the one on cpu")
+        lines += rec[name]["lines"]
+    if not lines:
+        raise AssertionError("ProstT5 parity: both m8 files are empty")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 seconds: {rec['seconds']:.1f}")
+    return paths
+
 
 def phase_boundaries(dev, report):
     """Both kernels against their plain versions, exact, where their
@@ -2062,6 +2438,7 @@ def main() -> int:
                                              report)
         del clu_db, clusters
         paths["multimer"] = phase_multimer(dev, tdb, qdb, work, report)
+        paths.update(phase_prostt5(dev, tdb, qdb, pdb, work, report))
         phase_boundaries(dev, report)
     loaded = sorted(k for k in sys.modules if k in ("jax", "foldseek_tpu")
                     or k.startswith(("jax.", "foldseek_tpu.")))
@@ -2094,6 +2471,7 @@ def main() -> int:
     with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"gates": report["gates"]}))
+    print(json.dumps({"prostt5": report["prostt5"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

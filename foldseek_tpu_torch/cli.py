@@ -3,20 +3,23 @@
 Usage: python -m foldseek_tpu_torch <command> [args...]
 
 The commands are those of `foldseek_tpu`'s command line that the port
-covers: the DB and output verbs (createdb, createindex, compressca,
-convertalis), searches (easy-search, search, also with --cluster-search 1
-and --index-server), the stage verbs (prefilter, ungappedprefilter,
-structurealign, tmalign, lolalign, aln2tmscore, samplemulambda,
-result2profile), the resident index server (indexserver, gpuserver),
-clustering (cluster, easy-cluster, createclusearchdb), reciprocal best hits
-(rbh, easy-rbh) and complexes (multimersearch, easy-multimersearch,
-multimercluster, easy-multimercluster and the complexsearch aliases).
+covers: the DB and output verbs (createdb, also from FASTA through ProstT5
+with --prostt5-model and from gs:// buckets, databases, createindex,
+compressca, convertalis), searches (easy-search, search, also with
+--cluster-search 1 and --index-server), the stage verbs (prefilter,
+ungappedprefilter, structurealign, tmalign, lolalign, aln2tmscore,
+samplemulambda, result2profile), the resident index server (indexserver,
+gpuserver), clustering (cluster, easy-cluster, createclusearchdb),
+reciprocal best hits (rbh, easy-rbh) and complexes (multimersearch,
+easy-multimersearch, multimercluster, easy-multimercluster and the
+complexsearch aliases).
 Flags, defaults and output bytes are those of `foldseek_tpu`'s verbs;
 `--gpu 1` selects the ungapped prefilter as in the reference's GPU mode and
 `--prefilter-mode 3` the ungapped + gapped mode that exists only on a GPU.
 `--device` picks where the stages of a verb that runs them go: `cuda` (the
-CUDA kernels, the default) or `cpu` (their plain PyTorch versions); the
-verbs that only read and write files take no `--device`.
+CUDA kernels, the default) or `cpu` (their plain PyTorch versions); createdb
+takes it for ProstT5; the other verbs that only read and write files take
+no `--device`.
 """
 from __future__ import annotations
 
@@ -163,8 +166,7 @@ def cmd_createdb(argv) -> int:
                    help="0: auto, 1: always add chain name")
     p.add_argument("--mask-bfactor-threshold", type=float, default=0.0)
     p.add_argument("--prostt5-model", type=str, default="",
-                   help="GGUF weights: predict 3Di from FASTA input (not "
-                        "ported)")
+                   help="GGUF weights: predict 3Di from FASTA input")
     p.add_argument("--tax-mapping-file", type=str, default="",
                    help="TSV of entry name -> NCBI taxid")
     p.add_argument("--file-include", default=".*",
@@ -186,6 +188,7 @@ def cmd_createdb(argv) -> int:
                    help="1: C-alpha float32 (native layout); 2: also emit"
                         " the int16-diff ca16.bin (Coordinate16 artifact)")
     p.add_argument("-v", "--verbosity", type=int, default=3)
+    _add_device(p)
     args = p.parse_args(argv)
     set_verbosity(args.verbosity)
     if args.input_format == 4:
@@ -202,7 +205,7 @@ def cmd_createdb(argv) -> int:
                    file_exclude=args.file_exclude,
                    tar_include=args.tar_include,
                    tar_exclude=args.tar_exclude,
-                   input_format=args.input_format)
+                   input_format=args.input_format, device=args.device)
     if args.tax_mapping_file:
         from .db.taxonomy import load_tax_mapping, save_db_mapping
         save_db_mapping(db, load_tax_mapping(args.tax_mapping_file))
@@ -770,8 +773,63 @@ def cmd_easy_multimercluster(argv) -> int:
     return 0
 
 
+DATABASES = {
+    # name: (description, URL) — the reference's 13 predownloadable DBs
+    # (src/FoldseekBase.cpp:446-551, data/structdatabases.sh)
+    "Alphafold/UniProt": ("AlphaFold UniProt", "https://foldseek.steineggerlab.workers.dev/afdb"),
+    "Alphafold/UniProt50-minimal": ("AlphaFold UniProt 50% clustered (minimal: no taxonomy/plddt)", "https://foldseek.steineggerlab.workers.dev/afdb50_minimal"),
+    "Alphafold/UniProt50": ("AlphaFold UniProt 50% clustered", "https://foldseek.steineggerlab.workers.dev/afdb50"),
+    "Alphafold/Proteome": ("AlphaFold Proteomes", "https://foldseek.steineggerlab.workers.dev/afdb_proteome"),
+    "Alphafold/Swiss-Prot": ("AlphaFold Swiss-Prot", "https://foldseek.steineggerlab.workers.dev/afdb_swissprot"),
+    "ESMAtlas30": ("ESM Metagenomic Atlas 30% clustered", "https://foldseek.steineggerlab.workers.dev/highquality_clust30"),
+    "PDB": ("RCSB PDB", "https://foldseek.steineggerlab.workers.dev/pdb100"),
+    "CATH50": ("CATH 50% clustered", "https://foldseek.steineggerlab.workers.dev/cath50"),
+    "BFMD": ("Big Fantastic Multimer Database", "https://foldseek.steineggerlab.workers.dev/bfmd"),
+    "BFVD": ("Big Fantastic Virus Database", "https://foldseek.steineggerlab.workers.dev/bfvd"),
+    "ProstT5": ("ProstT5 GGUF weights", "https://foldseek.steineggerlab.workers.dev/prostt5"),
+    "TED": ("TED domains", "https://foldseek.steineggerlab.workers.dev/ted"),
+    "TED50": ("TED domains 50% clustered", "https://foldseek.steineggerlab.workers.dev/ted50"),
+}
+
+
+def cmd_databases(argv) -> int:
+    """List the prebuilt databases, or download one (FOLDSEEK_TPU_DB_MIRROR
+    replaces the host of its URL), check it and turn it into a DB."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch databases")
+    p.add_argument("name", nargs="?")
+    p.add_argument("output", nargs="?")
+    p.add_argument("tmp_dir", nargs="?")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    if not args.name:
+        print("Available databases:")
+        for name, (desc, _) in DATABASES.items():
+            print(f"  {name:26s} {desc}")
+        return 0
+    if args.name not in DATABASES:
+        logger.error("unknown database %s", args.name)
+        return 1
+    if not args.output:
+        logger.error("usage: databases <name> <output> <tmp>")
+        return 1
+    import urllib.error
+
+    from .db.databases import download_database
+    try:
+        download_database(args.name, DATABASES[args.name][1], args.output,
+                          args.tmp_dir or args.output + "_tmp")
+    except (urllib.error.URLError, OSError) as e:
+        logger.error("download failed (%s); download the archive elsewhere, "
+                     "then run `createdb` on the extracted structures (set "
+                     "FOLDSEEK_TPU_DB_MIRROR to use a mirror).", e)
+        return 1
+    return 0
+
+
 COMMANDS = {
     "createdb": (cmd_createdb, "Convert PDB/mmCIF files to a structure DB"),
+    "databases": (cmd_databases, "List/download prebuilt structure databases"),
     "easy-search": (cmd_easy_search,
                     "Structure search from files (createdb+search+convertalis)"),
     "search": (cmd_search, "Search a query DB against a target DB"),

@@ -94,9 +94,15 @@ def collect_input_files(inputs: List[str],
     files = []
     for inp in inputs:
         if inp.startswith(("gs://", "gcs://")):
-            raise NotImplementedError(
-                "gs:// inputs are not ported yet (ROADMAP queue 1, the "
-                "remaining verbs: ingest/gcs.py)")
+            # GCS bucket walking (structcreatedb.cpp:1058-1288)
+            import tempfile
+
+            from .gcs import fetch_gcs_inputs
+            cache = os.environ.get(
+                "FOLDSEEK_TPU_GCS_CACHE",
+                os.path.join(tempfile.gettempdir(), "foldseek_tpu_gcs"))
+            files.extend(fetch_gcs_inputs(inp, cache,
+                                          file_include, file_exclude))
         elif os.path.isdir(inp):
             for root, _, fnames in os.walk(inp):
                 for fn in sorted(fnames):
@@ -215,12 +221,35 @@ def _looks_like_fasta(path: str) -> bool:
 
 
 def create_db_prostt5(inputs: List[str], out_path: str,
-                      model_file: str) -> StructDB:
+                      model_file: str, device="cuda") -> StructDB:
     """FASTA -> AA + ProstT5-predicted 3Di DB (no coordinates)
-    (reference: structcreatedb.cpp:697-872 ProstT5 path)."""
-    raise NotImplementedError(
-        "the ProstT5 createdb path is not ported yet (ROADMAP queue 1, "
-        "ProstT5: nn/prostt5.py)")
+    (reference: structcreatedb.cpp:697-872 ProstT5 path); the encoder runs
+    on `device`."""
+    from ..device import get_device
+    from ..nn.prostt5 import ProstT5
+    from ..utils.log import StageTimer
+    with StageTimer("prostt5_load"):
+        model = ProstT5(model_file=model_file,
+                        device=get_device(str(device)))
+    entries = []
+    for file_id, path in enumerate(collect_input_files(inputs)):
+        for header, seq in parse_fasta(path):
+            name = header.split()[0] if header.split() else header
+            entries.append((name, header, seq, file_id))
+    seqs = [e[2] for e in entries]
+    logger.info("ProstT5: predicting 3Di for %d sequences", len(seqs))
+    ss_strings = model.predict(seqs)
+    order = sorted(range(len(entries)),
+                   key=lambda i: (remove_two_extensions(entries[i][0]), i))
+    writer = StructDBWriter(out_path)
+    for new_key, idx in enumerate(order):
+        name, header, seq, file_id = entries[idx]
+        writer.add_entry(new_key, name, header,
+                         encode_seq(seq.upper()), encode_seq(ss_strings[idx]),
+                         ca=None, file_id=file_id)
+    db = writer.finish()
+    logger.info("createdb(ProstT5): %d entries", db.size)
+    return db
 
 
 def create_db(inputs: List[str], out_path: str,
@@ -229,9 +258,11 @@ def create_db(inputs: List[str], out_path: str,
               prostt5_model: str = "",
               file_include: str = ".*", file_exclude: str = "^$",
               tar_include: str = ".*", tar_exclude: str = "^$",
-              input_format: int = 0) -> StructDB:
+              input_format: int = 0, device="cuda") -> StructDB:
+    """`device` is where ProstT5 runs when `prostt5_model` is given; the
+    structure path is host work."""
     if prostt5_model:
-        return create_db_prostt5(inputs, out_path, prostt5_model)
+        return create_db_prostt5(inputs, out_path, prostt5_model, device)
     files = collect_input_files(inputs, file_include, file_exclude,
                                 tar_include, tar_exclude)
     entries = []  # (entry_name, header, aa_num, ss_num, ca, mask, file_id)

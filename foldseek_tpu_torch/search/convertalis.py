@@ -43,6 +43,19 @@ def _fmt_e(x) -> str:
 
 
 TAX_COLUMNS = {"taxid", "taxname", "taxlineage"}
+# columns computed from the C-alpha coordinates of both entries
+CA_COLUMNS = {"qtmscore", "ttmscore", "alntmscore", "rmsd", "lddt",
+              "lddtfull", "u", "t", "qca", "tca"}
+
+
+def require_ca(qdb, tdb, what: str) -> None:
+    """Raise when `what` needs C-alpha coordinates that a DB lacks: a DB
+    made from sequences by createdb --prostt5-model holds none (the
+    reference's convertalis cannot open the missing _ca DB either)."""
+    for db in (qdb, tdb):
+        if db.ca is None:
+            raise ValueError(f"{what} needs C-alpha coordinates, and "
+                             f"{db.path} has none")
 
 
 def format_results(qdb: StructDB, tdb: StructDB,
@@ -51,6 +64,9 @@ def format_results(qdb: StructDB, tdb: StructDB,
                    with_backtrace: bool = False) -> List[str]:
     """Render m8 lines for all queries in query-key order."""
     cols = fmt.split(",")
+    if CA_COLUMNS & set(cols) and any(results.values()):
+        require_ca(qdb, tdb, "columns "
+                   + ",".join(c for c in cols if c in CA_COLUMNS))
     qkey_to_idx = qdb.key_to_index()
     tkey_to_idx = tdb.key_to_index()
     tax = None
@@ -462,6 +478,8 @@ def _write_superposed_pdb(qdb, tdb, results, out_path):
     """Per hit: '<out><query>_<target>.pdb' with the target C-alpha trace
     superposed onto the query (structureconvertalis.cpp PDB_SUPERPOSED)."""
     from ..ingest.convert2pdb import THREE
+    if any(results.values()):
+        require_ca(qdb, tdb, "format mode 5 (superposed PDB)")
     qidx = qdb.key_to_index()
     tidx = tdb.key_to_index()
     for qkey in sorted(results):

@@ -592,3 +592,86 @@ def test_structurealign_verb_on_card_matches_cpu(cuda, tmp_path):
         assert (tk.sw_scores_pairs.launches > before) == (dev == "cuda")
         out[dev] = open(path, "rb").read()
     assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 20
+
+
+@pytest.mark.parametrize("T", [16, 1000, 4096])
+def test_prostt5_bucket_table_on_card_matches_cpu(cuda, T):
+    from foldseek_tpu_torch.nn.prostt5 import ProstT5Config, bucket_table
+    cfg = ProstT5Config()
+    assert torch.equal(bucket_table(T, cfg, cuda).cpu(),
+                       bucket_table(T, cfg, "cpu"))
+
+
+def test_prostt5_on_card_matches_cpu(cuda):
+    """The encoder at d_model 256, 4 layers: float32 on the card within 1e-4
+    of float32 on the CPU; bfloat16 on the card against float32 on the CPU
+    by the margin rule (letters equal wherever the CPU's top-two margin
+    exceeds twice the max |Δlogit|)."""
+    from foldseek_tpu_torch.nn import prostt5 as P
+    cfg = P.ProstT5Config(vocab_size=150, d_model=256, d_kv=32, num_heads=8,
+                          d_ff=1024, num_layers=4)
+    params = P.init_random_params(cfg, seed=1)
+    rng = np.random.RandomState(2)
+    tokens = torch.from_numpy(rng.randint(0, 150, (4, 256)))
+    mask = torch.zeros(4, 256, dtype=torch.bool)
+    for b, n in enumerate((256, 140, 20, 201)):
+        mask[b, :n] = True
+    valid = torch.zeros(4, 255, dtype=torch.bool)
+    for b, n in enumerate((256, 140, 20, 201)):
+        valid[b, :n - 2] = True
+
+    def logits(dev, dtype):
+        enc = P.ProstT5Encoder(cfg, P.params_from_numpy(cfg, params, dev,
+                                                        dtype))
+        return enc(tokens.to(dev), mask.to(dev)).cpu()[valid]
+
+    want = logits("cpu", torch.float32)
+    assert (logits(cuda, torch.float32) - want).abs().max() <= 1e-4
+    got = logits(cuda, torch.bfloat16)
+    d = (got - want).abs().max()
+    top2 = want.topk(2, -1).values
+    differ = got.argmax(-1) != want.argmax(-1)
+    assert not (differ & (top2[:, 0] - top2[:, 1] > 2 * d)).any(), d
+
+
+def test_prostt5_db_search_on_card_matches_cpu(cuda, tmp_path):
+    """A DB made by `createdb --prostt5-model` (no C-alpha) searched with
+    `search --gpu 1 -a` against a structure DB and against itself, on cuda
+    and on cpu: the same m8 bytes. On cuda the gapless kernel launches in
+    both searches and the SW kernel in the search against itself (random
+    weights' 3Di need not resemble the structures', so against them the
+    prefilter may pass no pair)."""
+    from foldseek_tpu_torch.cli import main
+    from foldseek_tpu_torch.nn import prostt5 as P
+    from foldseek_tpu_torch.nn.gguf_writer import write_prostt5_gguf
+    tdb, qdb = _fixture_dbs(tmp_path, 300, 3)
+    cfg = P.ProstT5Config(vocab_size=150, d_model=256, d_kv=32, num_heads=8,
+                          d_ff=1024, num_layers=4)
+    gguf = str(tmp_path / "m.gguf")
+    write_prostt5_gguf(gguf, cfg, P.init_random_params(cfg, seed=5))
+    with open(tmp_path / "q.fasta", "w") as f:
+        for i in range(qdb.size):
+            f.write(f">{qdb.names[i]}\n{qdb.get_aa_str(i)}\n")
+    seq_db = str(tmp_path / "seqdb")
+    assert main(["createdb", str(tmp_path / "q.fasta"), seq_db,
+                 "--prostt5-model", gguf, "-v", "1"]) == 0
+    for target, name in ((tdb.path, "structures"), (seq_db, "self")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            before = (tg.gapless_scores_batch.launches,
+                      tk.sw_scores_pairs.launches)
+            res = str(tmp_path / f"res_{name}_{dev}")
+            assert main(["search", seq_db, target, res, res + "_tmp",
+                         "--gpu", "1", "-a", "--device", dev, "-v", "1"]) == 0
+            torch.cuda.synchronize()
+            gapless = tg.gapless_scores_batch.launches - before[0]
+            sw = tk.sw_scores_pairs.launches - before[1]
+            if dev == "cpu":
+                assert (gapless, sw) == (0, 0)
+            else:
+                assert gapless > 0 and (sw > 0 or name == "structures")
+            assert main(["convertalis", seq_db, target, res, res + ".m8",
+                         "-v", "1"]) == 0
+            out[dev] = open(res + ".m8", "rb").read()
+        assert out["cuda"] == out["cpu"], name
+    assert out["cpu"].count(b"\n") >= 3
