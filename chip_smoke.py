@@ -55,12 +55,24 @@ Phases (any failure exits nonzero and prints no result line):
      1,000 clustered), the cluster-search m8 over those clusters, the
      easy-rbh m8 (the queries against the 1,000, --gpu 1), the multimer
      score lines and report (both DBs regrouped into two-chain complexes);
-     and easy-multimercluster's two files on a 120-entry complex DB. The cpu
-     side runs in two spawned worker processes while the main process runs
-     the cuda side. Then mode 1 with the device gates on the card against
-     the host gates on the cpu, inside the band of phase 5.
+     and easy-multimercluster's two files on a 120-entry complex DB. Since
+     slice 8, also byte for byte with the host's gates: easy-taxonomy's
+     three files (--max-seqs 100) over the parity DB with a taxdump
+     attached; the MSA chain (`search -a --max-seqs 50`, result2msa,
+     filtera3m, msa2profile --seq-db) and its profile DB's m8 (--max-seqs
+     100); swapresults, lca, taxonomyreport and addtaxonomy of the chain's
+     result DB; clusterupdate of the 1,000 clustered to a version with 100
+     entries dropped and 100 others added; the clustering chain (kmermatcher,
+     structurerescorediagonal, clust, structurealign -a, clust,
+     mergeclusters) on the 1,000; the multimer chain (search -a,
+     expandmultimer, structurealign -a -e 10000, scoremultimer,
+     createmultimerreport) of the query complexes against the 120-entry
+     complex DB. The cpu side runs in two spawned worker processes while
+     the main process runs the cuda side. Then mode 1 with the device gates
+     on the card against the host gates on the cpu, inside the band of
+     phase 5.
   9. easy-cluster with the defaults (cov 0.8, e 0.01, three cascade steps,
-     sensitivity 8, set cover, max-seqs 1000) on 20,000 synthetic
+     sensitivity 8, set cover, max-seqs 1000) on CLUSTER_ENTRIES synthetic
      entries through cluster_db and the three writers: each
      stage's seconds, the pairs of each align stage, the SW launches (more
      than 0), the clusters, one upload of the DB's residues an align stage
@@ -83,8 +95,8 @@ Phases (any failure exits nonzero and prints no result line):
      a thread of this script (its gapless launches counted) answers `ping`
      and `query_batch` as the in-process prefilter does, its round trip
      timed beside the in-process call; `search --gpu 1 -a` of the unindexed
-     target DB in fresh processes without, with, with and without
-     --index-server (the server holds the indexed copy), each printed
+     target DB in two fresh processes, without and with --index-server
+     (the server holds the indexed copy), each printed
      by `convertalis` to phase 5's m8 byte for byte, each process's wall
      recorded; ungappedprefilter (its lines equal the server's hits),
      structurealign -a over a served search's result, samplemulambda (both
@@ -112,6 +124,23 @@ Phases (any failure exits nonzero and prints no result line):
      both kernels counted, convertalis; (e) that DB against the parity DB
      and against itself, m8 on cuda == m8 on cpu byte for byte. Its numbers
      are the line before the kernels' line.
+ 14. the verbs of slice 8 at the users' sizes (phase_workflow_verbs): (a) a
+     synthetic NCBI taxdump with one species per two targets (about 56,000
+     nodes for 100,000 targets), createtaxdb on the target DB, easy-taxonomy
+     --gpu 1 of the queries with the card's default gates (both kernels
+     counted; one assignment, report count and top hit a query), then lca,
+     majoritylca, taxonomyreport, filtertaxdb and addtaxonomy over phase
+     5's mode-1 result DB, each timed; (b) result2msa of that result DB in
+     aligned FASTA and A3M, filtera3m and msa2profile --seq-db in two
+     processes of their own while the card works on the rest, then `search
+     <profdb> <targets> --gpu 1 -a` (both kernels counted) and the profile
+     DB against the queries (every profile's top hit is its own source);
+     (c) swapresults of the result DB, and back to the original records;
+     (d) clusterupdate of phase 9's clustering to a version without 5 % of
+     its entries and with 10 % more of another seed renamed (every new name
+     placed once, the removed ones gone; the SW kernel counted); (e) warmup
+     over phase 12's indexed copy of the targets (both kernels counted).
+     Its numbers are the line before the kernels' line.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
@@ -119,8 +148,8 @@ Phases (any failure exits nonzero and prints no result line):
      length, a stack whose caps force the 32-bit gapless instance.
 ptxas's registers, shared memory and spills of every instance are copied
 from the nvcc logs; a spill fails the run.
-Before the card's line come three JSON lines: the gates', phase 13's, and
-each kernel's launches, error, times and bound; the last line is {"ok":
+Before the card's line come four JSON lines: the gates', phase 13's, phase
+14's, and each kernel's launches, error, times and bound; the last line is {"ok":
 true, "device": {...}}. Details go to DIR/chip_smoke.json and
 DIR/nvcc_*.log (default foldseek_tpu_torch/build/smoke/, which git ignores).
 
@@ -181,8 +210,9 @@ NO_LIBRARY = None              # no single PyTorch call computes these DPs
 # an 8-core host (tools/torch_workflow_parity_seconds.py).
 MULTIMER_CLUSTER_ENTRIES = 120
 # entries phase 9 clusters: one organism's predicted structures (the AFDB
-# human proteome holds about 23,000 models)
-CLUSTER_ENTRIES = 20_000
+# proteomes of yeast and human hold about 6,000 and 23,000 models). 20,000
+# took the whole script to 1,238 s of its 1,200 on a slow host, so 10,000.
+CLUSTER_ENTRIES = 10_000
 
 
 def log(msg: str) -> None:
@@ -1151,10 +1181,11 @@ def device_busy_ms(prof):
     return ns / 1e6 or None
 
 
-def counted_run(dev, fn):
+def counted_run(dev, fn, stages=WORKFLOW_STAGES, stage_prefix="cluster"):
     """fn() with the counts of counted_search set to 0 just before and read
     just after, under torch.profiler with the CUDA activity alone: (fn's
-    result, record with the device's busy time and idle share)."""
+    result, record with the device's busy time and idle share, and the
+    stage times named in `stages` or starting with `stage_prefix`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     reset_counts(dev)
@@ -1163,7 +1194,7 @@ def counted_run(dev, fn):
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    rec = read_counts(dev, WORKFLOW_STAGES, stage_prefix="cluster")
+    rec = read_counts(dev, stages, stage_prefix=stage_prefix)
     t1 = time.perf_counter()
     busy = device_busy_ms(prof)
     return out, dict(
@@ -1467,7 +1498,7 @@ def phase_verbs_server(dev, tdb, qdb, work, host_m8: bytes, report):
     index's panels against built panels, and a cold mode-1 search over it;
     the index server on the card in a thread of this process against the
     in-process prefilter; `search --gpu 1 -a` of the unindexed target DB in
-    fresh processes without and with --index-server, in turns, printed by
+    two fresh processes, without and with --index-server, printed by
     convertalis and held against phase 5's m8 (host gates); the stage verbs ungappedprefilter,
     structurealign, samplemulambda and aln2tmscore through the command line
     on the card. Returns path -> launches."""
@@ -1552,11 +1583,11 @@ def phase_verbs_server(dev, tdb, qdb, work, host_m8: bytes, report):
             f"{[round(t, 2) for t in trips]} ms, in-process "
             f"{[round(t, 2) for t in in_process]} ms, launches "
             f"{paths['server']}")
-        # (d) fresh search processes, without and with the server, in turns
+        # (d) fresh search processes, without and with the server
         env = dict(os.environ, PYTHONPATH=REPO, FOLDSEEK_TPU_DEVICE_GATES="0")
         walls = []
         reset_counts(dev)
-        for k, use_server in enumerate((False, True, True, False)):
+        for k, use_server in enumerate((False, True)):
             res = os.path.join(d, f"res{k}")
             argv = [sys.executable, "-m", "foldseek_tpu_torch", "search",
                     qdb.path, tdb.path, res, os.path.join(d, f"tmp{k}"),
@@ -1581,7 +1612,7 @@ def phase_verbs_server(dev, tdb, qdb, work, host_m8: bytes, report):
             raise AssertionError("the served searches launched no gapless "
                                  "kernel in the server")
     rec["search_processes"] = walls
-    log(f"search processes (without, with, with, without the server): "
+    log(f"search processes (without, with the server): "
         f"{[round(w['seconds'], 2) for w in walls]} s; the server's launches "
         f"{paths['server_search']}")
     # (e) the stage verbs on the card
@@ -1637,22 +1668,29 @@ def phase_verbs_server(dev, tdb, qdb, work, host_m8: bytes, report):
 # Phase 7's comparisons, cuda against cpu. Each group is run by one process
 # on one device, and the groups stand in the order of their cpu seconds
 # (rbh about 115 s, two iterations 75, easy-cluster with cluster-search 65,
-# multimer 55, the rest 13-35 on a slow 8-core host) so that the worker
-# processes of the cpu side end together.
+# multimer 55, the rest 13-35 on a slow 8-core host; slice 8's groups 8-30 s
+# on one thread, tools/torch_workflow_parity_seconds.py --groups) so that
+# the worker processes of the cpu side end together.
 PARITY_SEARCHES = {"mode1": dict(mode=1), "mode3": dict(mode=3),
                    "mode0": dict(mode=0),
                    "iter2_mode1": dict(mode=1, iterations=2),
                    "tmalign": dict(mode=1, alignment_type=1),
                    "lolalign": dict(mode=1, alignment_type=3)}
-PARITY_GROUPS = (("rbh",), ("iter2_mode1",), ("easy_cluster", "clusearch"),
+PARITY_GROUPS = (("rbh",), ("iter2_mode1",),
+                 ("easy_cluster", "clusearch", "clusterupdate"),
                  ("multimer",), ("multimercluster",), ("lolalign",),
-                 ("tmalign",), ("index_server",), ("mode0",), ("mode1",),
-                 ("stage_verbs",), ("mode3",))
+                 ("msa_profile", "swapresults", "taxonomy"),
+                 ("index_server",), ("mode1",), ("tmalign",), ("mode0",),
+                 ("cluster_chain",), ("stage_verbs",), ("mode3",),
+                 ("multimer_chain",))
 # entries of the DB the workflow groups (easy-cluster, cluster-search, rbh,
 # multimer) compare on: their cpu side grows faster than linearly with it
 # (230 s for rbh alone at 2,000 entries on a slow host), and at 2,000 the
 # script came within 54 s of its 1,200 s limit
 WORKFLOW_PARITY_ENTRIES = 1000
+# entries of the workflow DB the clusterupdate parity drops (its new version
+# adds as many of another seed, renamed)
+UPDATE_PARITY_CHANGED = 100
 # worker processes of the cpu side: the plain versions keep about half of
 # the host's cores busy, so two of them beside the cuda side fill it
 PARITY_CPU_WORKERS = 2
@@ -1662,19 +1700,34 @@ def parity_inputs(base, pdb, qdb, work) -> dict:
     """The DBs of phase 7 on disk, by name: the queries, the parity DB, the
     workflow groups' DB of WORKFLOW_PARITY_ENTRIES entries, it and the
     queries regrouped into two-chain complexes, and easy-multimercluster's
-    complex DB; "out" is the directory the workflows write to."""
-    from foldseek_tpu_torch.db import synth_db
+    complex DB; a copy of the parity DB with a taxdump and mapping attached
+    (createtaxdb) and a new version of the workflow DB for clusterupdate;
+    "out" is the directory the workflows write to."""
+    import shutil
+
+    import numpy as np
+
+    from foldseek_tpu_torch.db import load_db, synth_db
     d = os.path.join(work, "parity_inputs")
     paths = dict(out=os.path.join(work, "parity_outputs"), queries=qdb.path,
                  parity=pdb.path, workflow=os.path.join(d, "workflow"),
                  complex_targets=os.path.join(d, "complex_targets"),
                  complex_queries=os.path.join(d, "complex_queries"),
-                 mmclu=os.path.join(d, "mmclu"))
-    complex_db(synth_db(base, WORKFLOW_PARITY_ENTRIES, paths["workflow"],
-                        seed=1), paths["complex_targets"])
+                 mmclu=os.path.join(d, "mmclu"),
+                 parity_tax=os.path.join(d, "parity_tax"),
+                 workflow_new=os.path.join(d, "workflow_new"))
+    workflow = synth_db(base, WORKFLOW_PARITY_ENTRIES, paths["workflow"],
+                        seed=1)
+    complex_db(workflow, paths["complex_targets"])
     complex_db(qdb, paths["complex_queries"])
     complex_db(synth_db(base, MULTIMER_CLUSTER_ENTRIES,
                         os.path.join(d, "mmclu_src"), seed=3), paths["mmclu"])
+    shutil.copytree(pdb.path, paths["parity_tax"])
+    tax_db(load_db(paths["parity_tax"]), d, seed=12)
+    drop = set(np.random.default_rng(14).choice(
+        workflow.size, UPDATE_PARITY_CHANGED, replace=False).tolist())
+    updated_db(workflow, synth_db(base, UPDATE_PARITY_CHANGED, os.path.join(
+        d, "workflow_added"), seed=7), drop, paths["workflow_new"])
     return paths
 
 
@@ -1747,6 +1800,14 @@ def parity_side(group, paths: dict, device):
                             for ln in lines[q]), text(rep)]
         elif name == "stage_verbs":
             outputs = stage_verb_outputs(paths, d, dev)
+        elif name == "clusterupdate":   # after easy_cluster, on its clusters
+            tsv = os.path.join(d, "updated_cluster.tsv")
+            cli("clusterupdate", paths["workflow"], paths["workflow_new"],
+                os.path.join(d, "clu_cluster.tsv"), tsv,
+                os.path.join(d, "update_tmp"), "--device", dev)
+            outputs = [read_bytes(tsv)]
+        elif name in CHAINS:
+            outputs = CHAINS[name](paths, d, dev)
         elif name == "index_server":
             res = os.path.join(d, "served")
             with served(paths["parity"], socket_path(d, "p.sock"),
@@ -1797,6 +1858,128 @@ def stage_verb_outputs(paths: dict, d: str, dev) -> list:
     return outputs
 
 
+def taxonomy_outputs(paths: dict, d: str, dev) -> list:
+    """The taxonomy verbs on `dev` over the parity DB with its taxdump:
+    easy-taxonomy --gpu 1 --max-seqs 100's three files; lca, taxonomyreport
+    and addtaxonomy --tax-lineage 1 over the msa_profile group's result DB
+    (the same keys)."""
+    q, t, pre = paths["queries"], paths["parity_tax"], os.path.join(d, "tax")
+    res = os.path.join(d, "msa_res")
+    cli("easy-taxonomy", q, t, pre, pre + "_tmp", "--gpu", 1, "--max-seqs",
+        100, "--device", dev)
+    cli("lca", t, res, pre + "_lcadb")
+    cli("taxonomyreport", t, res, pre + "_taxreport")
+    cli("addtaxonomy", t, res, pre + "_added", "--tax-lineage", 1)
+    return [read_bytes(pre + x) for x in (
+        "_lca.tsv", "_report", "_tophit_aln", "_lcadb", "_taxreport",
+        "_added")]
+
+
+def msa_profile_outputs(paths: dict, d: str, dev) -> list:
+    """The MSA -> profile chain on `dev` over the parity DB: `search --gpu 1
+    -a --max-seqs 50`, result2msa, filtera3m, msa2profile --seq-db and the
+    profile DB's `search --gpu 1 -a --max-seqs 100`, printed by
+    convertalis."""
+    q, t, pre = paths["queries"], paths["parity"], os.path.join(d, "msa")
+    cli("search", q, t, pre + "_res", pre + "_tmp", "--gpu", 1, "-a",
+        "--max-seqs", 50, "--device", dev)
+    cli("result2msa", q, t, pre + "_res", pre)
+    cli("filtera3m", pre, pre + "_filtered")
+    cli("msa2profile", pre, pre + "_prof", "--seq-db", q)
+    cli("search", pre + "_prof", t, pre + "_pres", pre + "_ptmp", "--gpu", 1,
+        "-a", "--max-seqs", 100, "--device", dev)
+    cli("convertalis", pre + "_prof", t, pre + "_pres", pre + "_pres.m8")
+    return [read_bytes(pre + x) for x in ("_res", "", "_filtered",
+                                          "_pres.m8")]
+
+
+def swapresults_outputs(paths: dict, d: str, dev) -> list:
+    """swapresults of the msa_profile group's first search, and back."""
+    q, t, pre = paths["queries"], paths["parity"], os.path.join(d, "msa")
+    cli("swapresults", q, t, pre + "_res", pre + "_swapped")
+    cli("swapresults", t, q, pre + "_swapped", pre + "_swapped2")
+    return [read_bytes(pre + x) for x in ("_swapped", "_swapped2")]
+
+
+def kmer_tsv_as_result_db(tsv: str, db, out: str) -> str:
+    """kmermatcher's `q t score diag` lines as a result DB whose start
+    positions carry the diagonal, the input structurerescorediagonal
+    reads: a data step between two verbs of the clustering chain."""
+    from foldseek_tpu_torch.search.resultdb import write_result_db
+    from foldseek_tpu_torch.search.results import AlnResult
+    length = {int(k): db.entry_len(i) for i, k in enumerate(db.keys)}
+    res = {}
+    with open(tsv) as f:
+        for line in f:
+            qk, tk, score, diag = map(int, line.split("\t"))
+            qs, ts = max(diag, 0), max(-diag, 0)
+            res.setdefault(qk, []).append(AlnResult(
+                db_key=tk, score=score, seq_id=0.0, evalue=0.0, q_start=qs,
+                q_end=qs, q_len=length[qk], t_start=ts, t_end=ts,
+                t_len=length[tk]))
+    write_result_db(res, out, add_backtrace=False)
+    return out
+
+
+def cluster_tsv_as_keys(tsv: str, db, out: str) -> str:
+    """clust's `rep member` name lines as the key lines mergeclusters
+    reads."""
+    key = {db.names[i]: int(db.keys[i]) for i in range(db.size)}
+    with open(tsv) as f, open(out, "w") as g:
+        for line in f:
+            rep, mem = line.rstrip("\n").split("\t")
+            g.write(f"{key[rep]}\t{key[mem]}\n")
+    return out
+
+
+def cluster_chain_outputs(paths: dict, d: str, dev) -> list:
+    """Two clustering steps by the stage verbs over the workflow DB:
+    kmermatcher, structurerescorediagonal of its pairs and clust; then
+    structurealign -a of those pairs on `dev` and clust --cluster-mode 2;
+    mergeclusters of the two steps."""
+    from foldseek_tpu_torch.db import load_db
+    wf, pre = paths["workflow"], os.path.join(d, "cc")
+    db = load_db(wf)
+    cli("kmermatcher", wf, pre + "_kmer.tsv")
+    kmer_tsv_as_result_db(pre + "_kmer.tsv", db, pre + "_pref")
+    cli("structurerescorediagonal", wf, wf, pre + "_pref", pre + "_rescored")
+    cli("clust", wf, pre + "_rescored", pre + "_step1.tsv")
+    cli("structurealign", wf, wf, pre + "_rescored", pre + "_aln", "-a",
+        "--device", dev)
+    cli("clust", wf, pre + "_aln", pre + "_step2.tsv", "--cluster-mode", 2)
+    cli("mergeclusters",
+        cluster_tsv_as_keys(pre + "_step1.tsv", db, pre + "_keys1.tsv"),
+        cluster_tsv_as_keys(pre + "_step2.tsv", db, pre + "_keys2.tsv"),
+        pre + "_merged.tsv")
+    return [read_bytes(pre + x) for x in (
+        "_kmer.tsv", "_rescored", "_step1.tsv", "_aln", "_step2.tsv",
+        "_merged.tsv")]
+
+
+def multimer_chain_outputs(paths: dict, d: str, dev) -> list:
+    """The multimer search by its stage verbs, the query complexes against
+    easy-multimercluster's complex DB: `search --gpu 1 -a` on `dev`,
+    expandmultimer, structurealign -a -e 10000 on `dev`, scoremultimer,
+    createmultimerreport."""
+    q, t, pre = paths["complex_queries"], paths["mmclu"], os.path.join(d, "mc")
+    cli("search", q, t, pre + "_res", pre + "_tmp", "--gpu", 1, "-a",
+        "--device", dev)
+    cli("expandmultimer", q, t, pre + "_res", pre + "_expanded")
+    cli("structurealign", q, t, pre + "_expanded", pre + "_aln", "-a", "-e",
+        10000, "--device", dev)
+    cli("scoremultimer", q, t, pre + "_aln", pre + "_scored")
+    cli("createmultimerreport", q, t, pre + "_scored", pre + "_report")
+    return [read_bytes(pre + x) for x in (
+        "_res", "_expanded", "_aln", "_scored", "_report")]
+
+
+# phase 7's groups of slice 8 beside the slice 5 workflows, by name
+CHAINS = {"taxonomy": taxonomy_outputs, "msa_profile": msa_profile_outputs,
+          "swapresults": swapresults_outputs,
+          "cluster_chain": cluster_chain_outputs,
+          "multimer_chain": multimer_chain_outputs}
+
+
 def phase_parity(dev, base, pdb, qdb, work, report):
     """7. parity, cuda against cpu, byte for byte, with the host's gates on
     both sides, on the parity DB: the m8 lines of PARITY_SEARCHES and the
@@ -1815,7 +1998,10 @@ def phase_parity(dev, base, pdb, qdb, work, report):
     entries = {name: pdb.size for g in PARITY_GROUPS for name in g}
     entries.update(dict.fromkeys(("easy_cluster", "clusearch", "rbh",
                                   "multimer"), WORKFLOW_PARITY_ENTRIES))
-    entries["multimercluster"] = load_db(paths["mmclu"]).size
+    entries.update(dict.fromkeys(("clusterupdate", "cluster_chain"),
+                                 WORKFLOW_PARITY_ENTRIES))
+    entries["multimercluster"] = entries["multimer_chain"] = load_db(
+        paths["mmclu"]).size
     threads = max(1, (os.cpu_count() or 2) // PARITY_CPU_WORKERS)
     pool = ProcessPoolExecutor(
         PARITY_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
@@ -1855,6 +2041,302 @@ def phase_parity(dev, base, pdb, qdb, work, report):
     report["parity_mode1_device_gates"] = compare_gates(
         host_cpu, res_gpu, f"parity mode 1, {pdb.size} targets: device gates "
                            "on cuda vs host gates on cpu")
+
+# --- slice 8: taxonomy, the MSA chain, swapresults, clusterupdate, warmup -----
+
+# the levels of phase 14's synthetic taxdump below the root, each a share of
+# the species count: about 56,000 nodes for 50,000 species, the NCBI ranks a
+# kraken-style report names, one species per two targets
+TAX_LEVELS = (("superkingdom", 4e-5), ("phylum", 2e-4), ("class", 1e-3),
+              ("order", 4e-3), ("family", 1.6e-2), ("genus", 0.1),
+              ("species", 1.0))
+# phase 14 (d): entries of phase 9's DB the new version drops (5 %), and
+# entries of another seed it adds under names of their own (10 %)
+UPDATE_DROPPED, UPDATE_ADDED = CLUSTER_ENTRIES // 20, CLUSTER_ENTRIES // 10
+
+
+def write_taxdump(path: str, n_species: int, seed: int):
+    """An NCBI-style taxdump (nodes.dmp, names.dmp) from a seed: the root,
+    then every level of TAX_LEVELS, each node's parent drawn from the level
+    above (every node there gets one child first). Returns the species'
+    taxids."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(path, exist_ok=True)
+    nodes = [(1, 1, "no rank")]
+    above, next_id, levels = [1], 2, {}
+    for rank, share in TAX_LEVELS:
+        n = max(1, round(n_species * share)) if rank != "species" \
+            else n_species
+        ids = list(range(next_id, next_id + n))
+        next_id += n
+        first = [above[i % len(above)] for i in range(min(n, len(above)))]
+        rest = rng.choice(np.asarray(above), size=n - len(first)).tolist()
+        nodes += [(t, p, rank) for t, p in zip(ids, first + rest)]
+        levels[rank] = above = ids
+    with open(os.path.join(path, "nodes.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\t\t|\t0\t|\n"
+                     for t, p, r in nodes)
+    with open(os.path.join(path, "names.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{'root' if t == 1 else f'{r} {t}'}\t|\t\t|"
+                     f"\tscientific name\t|\n" for t, _, r in nodes)
+    return levels["species"]
+
+
+def tax_db(db, d: str, seed: int) -> str:
+    """A taxdump with one species per two entries of `db`, the mapping of
+    every entry name to its species, and createtaxdb attaching both to `db`;
+    returns the taxdump's directory."""
+    dump = os.path.join(d, "taxdump")
+    species = write_taxdump(dump, max(1, db.size // 2), seed)
+    mapping = os.path.join(d, "tax_mapping.tsv")
+    with open(mapping, "w") as f:
+        f.writelines(f"{db.names[i]}\t{species[i // 2]}\n"
+                     for i in range(db.size))
+    cli("createtaxdb", db.path, "--ncbi-tax-dump", dump, "--tax-mapping-file",
+        mapping)
+    return dump
+
+
+def updated_db(old, extra, drop, path: str):
+    """A new version of DB `old`: its entries but the indices in `drop`,
+    then those of `extra` renamed upd0000000, ... under keys of their own
+    (synth_db names every DB's entries alike)."""
+    import numpy as np
+
+    from foldseek_tpu_torch.cli import _copy_entry
+    from foldseek_tpu_torch.db.storage import StructDBWriter
+    w = StructDBWriter(path)
+    for i in range(old.size):
+        if i not in drop:
+            _copy_entry(w, old, i)
+    top = int(np.max(old.keys)) + 1
+    for i in range(extra.size):
+        w.add_entry(top + i, f"upd{i:07d}", f"upd{i:07d} added",
+                    np.asarray(extra.get_aa(i)), np.asarray(extra.get_ss(i)),
+                    np.asarray(extra.get_ca(i)))
+    return w.finish()
+
+
+def result_records(path: str) -> set:
+    from foldseek_tpu_torch.search.resultdb import read_result_db
+    res, _ = read_result_db(path)
+    return {(q, r.db_key, r.score, r.q_start, r.t_start, r.backtrace)
+            for q, rs in res.items() for r in rs}
+
+
+def timed_cli(rec: dict, key: str, *argv) -> float:
+    t0 = time.perf_counter()
+    cli(*argv)
+    rec[f"{key}_seconds"] = seconds = time.perf_counter() - t0
+    return seconds
+
+
+def background_cli(*argv):
+    """One verb of the port's command line in a process of its own (no
+    CUDA): (exit code, stderr's tail, seconds)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "foldseek_tpu_torch",
+                           *map(str, argv), "-v", "1"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=900)
+    return proc.returncode, proc.stderr[-2000:], time.perf_counter() - t0
+
+
+def phase_workflow_verbs(dev, base, tdb, qdb, work, mode1_res, report):
+    """14. The verbs of slice 8 at the users' sizes. (a) taxonomy: a
+    synthetic taxdump with one species per two of the 100k targets,
+    createtaxdb, easy-taxonomy --gpu 1 of the queries with the card's default
+    gates (counted), then lca, majoritylca, taxonomyreport, filtertaxdb and
+    addtaxonomy over phase 5's mode-1 result DB; (b) result2msa of that
+    result DB (aligned FASTA, A3M), filtera3m and msa2profile --seq-db in
+    two processes of their own while the card works on (a), (c)-(e), then
+    `search <profdb> <targets> --gpu 1 -a` (counted) and the profile DB
+    against the queries; (c) swapresults of the result DB, twice; (d)
+    clusterupdate of phase 9's clustering to a version without
+    UPDATE_DROPPED entries and with UPDATE_ADDED others (counted); (e)
+    warmup over phase 12's indexed copy of the targets (counted). Returns
+    path -> launches."""
+    import numpy as np
+
+    from foldseek_tpu_torch.db import load_db, synth_db
+    from foldseek_tpu_torch.db.taxonomy import NcbiTaxonomy
+    from foldseek_tpu_torch.search.resultdb import read_result_db
+    t_phase = time.perf_counter()
+    rec, paths = {}, {}
+    d = os.path.join(work, "slice8")
+    os.makedirs(d)
+    n_records = sum(len(v) for v in read_result_db(mode1_res)[0].values())
+    rec["mode1_records"] = n_records
+    # (b), first part
+    msa2, msa5 = os.path.join(d, "msa2"), os.path.join(d, "msa5")
+    timed_cli(rec, "result2msa_fasta", "result2msa", qdb.path, tdb.path,
+              mode1_res, msa2)
+    timed_cli(rec, "result2msa_a3m", "result2msa", qdb.path, tdb.path,
+              mode1_res, msa5, "--msa-format-mode", 5)
+    prof = os.path.join(d, "profdb")
+    pool = ThreadPoolExecutor(2)
+    host = {"filtera3m": pool.submit(background_cli, "filtera3m", msa5,
+                                     os.path.join(d, "msa5_filtered")),
+            "msa2profile": pool.submit(background_cli, "msa2profile", msa2,
+                                       prof, "--seq-db", qdb.path)}
+    try:
+        # (a) taxonomy
+        t0 = time.perf_counter()
+        dump = tax_db(tdb, d, seed=11)
+        rec["taxdump_and_createtaxdb_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tax = NcbiTaxonomy(dump)
+        rec["taxdump_parse_seconds"] = time.perf_counter() - t0
+        rec["taxdump_nodes"] = len(tax.parent)
+        clade = next(t for t, r in tax.rank.items() if r == "class")
+        prefix = os.path.join(d, "tax")
+        with gates_env(""):
+            _, run = counted_run(dev, lambda: cli(
+                "easy-taxonomy", qdb.path, tdb.path, prefix, prefix + "_tmp",
+                "--gpu", 1, "--device", dev), stages=STAGES, stage_prefix="")
+        paths["taxonomy"] = run["launches"]
+        lca = read_bytes(prefix + "_lca.tsv").decode().splitlines()
+        rows = [ln.split("\t") for ln in
+                read_bytes(prefix + "_report").decode().splitlines()]
+        top = read_bytes(prefix + "_tophit_aln").decode().splitlines()
+        if (len(lca) != qdb.size or sum(int(r[2]) for r in rows) != qdb.size
+                or len(top) != qdb.size
+                or len({ln.split("\t")[0] for ln in top}) != qdb.size):
+            raise AssertionError("easy-taxonomy: not one assignment, one "
+                                 "report count and one top hit a query")
+        if not (run["launches"]["gapless"] and run["launches"]["sw"]):
+            raise AssertionError(f"easy-taxonomy: wrong kernels launched: "
+                                 f"{run['launches']}")
+        rec["easy_taxonomy"] = run
+        log(f"easy-taxonomy {qdb.size} queries x {tdb.size} targets "
+            f"({rec['taxdump_nodes']} taxdump nodes, parsed in "
+            f"{rec['taxdump_parse_seconds']:.3f} s): {run['seconds']:.3f} s, "
+            f"stages {run['stages']}, launches {run['launches']}, gate fleets "
+            f"{run['gate_fleets']}, {busy_text(run)}")
+        out = {}
+        for verb, extra in (("lca", ()), ("majoritylca", ()),
+                            ("taxonomyreport", ()),
+                            ("filtertaxdb", ("--taxon-list", clade)),
+                            ("addtaxonomy", ("--tax-lineage", 1))):
+            out[verb] = os.path.join(d, verb)
+            timed_cli(rec, verb, verb, tdb.path, mode1_res, out[verb], *extra)
+        counts = {v: read_bytes(p).count(b"\n") for v, p in out.items()}
+        kept = counts["filtertaxdb"] - 1          # its header line
+        if (counts["lca"] != qdb.size or counts["majoritylca"] != qdb.size
+                or counts["addtaxonomy"] != n_records
+                or not 0 < kept < n_records):
+            raise AssertionError(f"taxonomy verbs: line counts {counts}")
+        rec["filtertaxdb_kept"] = kept
+        log("taxonomy verbs over the mode-1 result DB: " + ", ".join(
+            f"{v} {rec[v + '_seconds']:.3f} s" for v in out)
+            + f" ({kept} of {n_records} records in class {clade})")
+        # (c) swapresults, twice
+        sw1, sw2 = os.path.join(d, "swapped"), os.path.join(d, "swapped2")
+        timed_cli(rec, "swapresults", "swapresults", qdb.path, tdb.path,
+                  mode1_res, sw1)
+        timed_cli(rec, "swapresults_back", "swapresults", tdb.path, qdb.path,
+                  sw1, sw2)
+        if result_records(sw2) != result_records(mode1_res):
+            raise AssertionError("swapresults twice does not give back the "
+                                 "original records")
+        log(f"swapresults of {n_records} records: {rec['swapresults_seconds']:.3f}"
+            f" s, back {rec['swapresults_back_seconds']:.3f} s")
+        # (d) clusterupdate
+        old = load_db(os.path.join(work, "cluster_db"))
+        drop = set(np.random.default_rng(13).choice(
+            old.size, UPDATE_DROPPED, replace=False).tolist())
+        t0 = time.perf_counter()
+        new = updated_db(old, synth_db(base, UPDATE_ADDED, os.path.join(
+            d, "update_added"), seed=7), drop, os.path.join(d, "update_new"))
+        rec["clusterupdate_new_db_seconds"] = time.perf_counter() - t0
+        out_tsv = os.path.join(d, "updated_cluster.tsv")
+        with gates_env(""):
+            _, run = counted_run(dev, lambda: cli(
+                "clusterupdate", old.path, new.path,
+                os.path.join(work, "clu_cluster.tsv"), out_tsv,
+                os.path.join(d, "update_tmp"), "--device", dev),
+                stages=STAGES, stage_prefix="clu")
+        paths["clusterupdate"] = run["launches"]
+        pairs = [ln.split("\t") for ln in
+                 read_bytes(out_tsv).decode().splitlines()]
+        members = sorted(m for _, m in pairs)
+        if members != sorted(new.names) or {old.names[i] for i in drop} \
+                & set(members):
+            raise AssertionError("clusterupdate: a new entry is not placed "
+                                 "exactly once, or a removed one stays")
+        if not run["launches"]["sw"]:
+            raise AssertionError(f"clusterupdate: the SW kernel never "
+                                 f"launched: {run['launches']}")
+        run.update(entries_old=old.size, entries_new=new.size,
+                   clusters=len({r for r, _ in pairs}))
+        rec["clusterupdate"] = run
+        log(f"clusterupdate {old.size} -> {new.size} entries: "
+            f"{run['seconds']:.3f} s, {run['clusters']} clusters, stages "
+            f"{run['stages']}, launches {run['launches']}, "
+            f"{busy_text(run)}")
+        # (e) warmup over the indexed copy
+        idx_path = os.path.join(work, "slice6", "targets_indexed")
+        _, run = counted_run(dev, lambda: cli("warmup", idx_path, "--device",
+                                              dev),
+                             stages=STAGES, stage_prefix="warmup")
+        paths["warmup"] = run["launches"]
+        if not (run["launches"]["gapless"] and run["launches"]["sw"]):
+            raise AssertionError(f"warmup: wrong kernels launched: "
+                                 f"{run['launches']}")
+        rec["warmup"] = run
+        log(f"warmup over the indexed {tdb.size} targets: "
+            f"{run['seconds']:.3f} s, stages {run['stages']}, launches "
+            f"{run['launches']}")
+        # (b), the rest: the two host verbs, then the profile DB's searches
+        t0 = time.perf_counter()
+        for verb, fut in host.items():
+            rc, err, seconds = fut.result()
+            rec[f"{verb}_seconds"] = seconds
+            if rc != 0:
+                raise AssertionError(f"{verb} exited {rc}: {err}")
+        rec["host_verbs_wait_seconds"] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+    filtered = read_bytes(os.path.join(d, "msa5_filtered"))
+    if filtered.count(b"#entry ") != qdb.size or len(filtered) > len(
+            read_bytes(msa5)):
+        raise AssertionError("filtera3m: an MSA lost or grown")
+    pres = os.path.join(d, "profile_res")
+    with gates_env(""):
+        _, run = counted_run(dev, lambda: cli(
+            "search", prof, tdb.path, pres, pres + "_tmp", "--gpu", 1, "-a",
+            "--device", dev), stages=STAGES, stage_prefix="")
+    paths["msa_profile"] = run["launches"]
+    res, _ = read_result_db(pres)
+    if len(res) != qdb.size or not all(res.values()):
+        raise AssertionError("profile search: a profile without hits")
+    if not (run["launches"]["gapless"] and run["launches"]["sw"]):
+        raise AssertionError(f"profile search: wrong kernels launched: "
+                             f"{run['launches']}")
+    run["hits"] = sum(len(v) for v in res.values())
+    rec["profile_search"] = run
+    sres = os.path.join(d, "profile_self")
+    timed_cli(rec, "profile_search_queries", "search", prof, qdb.path, sres,
+              sres + "_tmp", "--gpu", 1, "--device", dev)
+    own, _ = read_result_db(sres)
+    if sorted(own) != sorted(int(k) for k in qdb.keys) or any(
+            rs[0].db_key != qk for qk, rs in own.items()):
+        raise AssertionError("profile DB against the queries: a profile's "
+                             "top hit is not its own source")
+    log(f"MSA chain: result2msa {rec['result2msa_fasta_seconds']:.3f} s / "
+        f"{rec['result2msa_a3m_seconds']:.3f} s, filtera3m "
+        f"{rec['filtera3m_seconds']:.1f} s and msa2profile "
+        f"{rec['msa2profile_seconds']:.1f} s in processes of their own "
+        f"(waited {rec['host_verbs_wait_seconds']:.1f} s for them), the "
+        f"profile search {run['seconds']:.3f} s ({run['hits']} hits, stages "
+        f"{run['stages']}, launches {run['launches']}, {busy_text(run)}), "
+        f"against the queries {rec['profile_search_queries_seconds']:.3f} s")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 seconds: {rec['seconds']:.1f}")
+    report["workflow_verbs"] = rec
+    return paths
+
 
 # --- ProstT5: createdb --prostt5-model and its sequence-only DBs -------------
 
@@ -2350,6 +2832,7 @@ def main() -> int:
     from foldseek_tpu_torch.device import get_device
     from foldseek_tpu_torch.ops import _build
     from foldseek_tpu_torch.search.align import native_ready
+    from foldseek_tpu_torch.search.resultdb import write_result_db
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -2416,6 +2899,8 @@ def main() -> int:
             else (res_b, res_a)
         del res_a, res_b
         host_m8 = m8_bytes(qdb, tdb, res_host)
+        mode1_res = os.path.join(work, "mode1_res")
+        write_result_db(res_host, mode1_res, add_backtrace=True)
         phase_gate_turns(dev, tdb, qdb, report)
         report["e2e_mode1_gates_vs_host"] = compare_gates(
             res_host, res_dev, f"e2e mode 1, {tdb.size} targets: device "
@@ -2438,6 +2923,8 @@ def main() -> int:
                                              report)
         del clu_db, clusters
         paths["multimer"] = phase_multimer(dev, tdb, qdb, work, report)
+        paths.update(phase_workflow_verbs(dev, base, tdb, qdb, work, mode1_res,
+                                          report))
         paths.update(phase_prostt5(dev, tdb, qdb, pdb, work, report))
         phase_boundaries(dev, report)
     loaded = sorted(k for k in sys.modules if k in ("jax", "foldseek_tpu")
@@ -2472,6 +2959,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps({"gates": report["gates"]}))
     print(json.dumps({"prostt5": report["prostt5"]}))
+    print(json.dumps({"workflow_verbs": report["workflow_verbs"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -675,3 +675,120 @@ def test_prostt5_db_search_on_card_matches_cpu(cuda, tmp_path):
             out[dev] = open(res + ".m8", "rb").read()
         assert out["cuda"] == out["cpu"], name
     assert out["cpu"].count(b"\n") >= 3
+
+
+# --- taxonomy, cluster update and the MSA -> profile chain on the card --------
+
+def _taxdump(path, n_species):
+    """An NCBI-style taxdump: root -> superkingdom -> phylum -> genus ->
+    species, two genera a phylum, `n_species` species spread over them."""
+    import os
+    os.makedirs(path, exist_ok=True)
+    nodes = [(1, 1, "no rank"), (2, 1, "superkingdom"), (3, 2, "phylum"),
+             (4, 2, "phylum"), (5, 3, "genus"), (6, 3, "genus"),
+             (7, 4, "genus"), (8, 4, "genus")]
+    species = [100 + i for i in range(n_species)]
+    nodes += [(s, 5 + i % 4, "species") for i, s in enumerate(species)]
+    with open(os.path.join(path, "nodes.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r in nodes)
+    with open(os.path.join(path, "names.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{r} {t}\t|\t\t|\tscientific name\t|\n"
+                     for t, _, r in nodes)
+    return species
+
+
+def test_easy_taxonomy_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """easy-taxonomy --gpu 1 (one species per two targets) writes the same
+    _lca.tsv, _report and _tophit_aln on cuda as on cpu with the host's
+    gates, and launches both kernels on cuda."""
+    from foldseek_tpu_torch.cli import main
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")
+    tdb, qdb = _fixture_dbs(tmp_path, 600, 6)
+    species = _taxdump(str(tmp_path / "taxdump"), 300)
+    with open(tmp_path / "map.tsv", "w") as f:
+        f.writelines(f"{tdb.names[i]}\t{species[i // 2]}\n"
+                     for i in range(tdb.size))
+    assert main(["createtaxdb", tdb.path, "--ncbi-tax-dump",
+                 str(tmp_path / "taxdump"), "--tax-mapping-file",
+                 str(tmp_path / "map.tsv"), "-v", "1"]) == 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = (tg.gapless_scores_batch.launches,
+                  tk.sw_scores_pairs.launches)
+        prefix = str(tmp_path / dev)
+        assert main(["easy-taxonomy", qdb.path, tdb.path, prefix,
+                     prefix + "_tmp", "--gpu", "1", "--device", dev,
+                     "-v", "1"]) == 0
+        torch.cuda.synchronize()
+        after = (tg.gapless_scores_batch.launches,
+                 tk.sw_scores_pairs.launches)
+        assert all(a > b for a, b in zip(after, before)) == (dev == "cuda")
+        out[dev] = [open(prefix + s, "rb").read()
+                    for s in ("_lca.tsv", "_report", "_tophit_aln")]
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][0].count(b"\n") == qdb.size
+
+
+def test_clusterupdate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """clusterupdate of a 300-entry clustering to a new version without 30
+    entries and with 20 added under names of their own: the same TSV on
+    cuda as on cpu; its search and cluster_db launch the SW kernel on
+    cuda."""
+    from chip_smoke import updated_db
+    from foldseek_tpu_torch.cli import main
+    from foldseek_tpu_torch.db import load_db, synth_db
+    monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")
+    tdb, _ = _fixture_dbs(tmp_path, 300, 1)
+    prefix = str(tmp_path / "old")
+    assert main(["easy-cluster", tdb.path, prefix, prefix + "_tmp",
+                 "--device", "cpu", "-v", "1"]) == 0
+    extra = synth_db(load_db(str(tmp_path / "base")), 20,
+                     str(tmp_path / "extra"), seed=7)
+    drop = set(np.random.default_rng(0).choice(tdb.size, 30,
+                                               replace=False).tolist())
+    new = updated_db(tdb, extra, drop, str(tmp_path / "new"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = tk.sw_scores_pairs.launches
+        path = str(tmp_path / f"new_{dev}.tsv")
+        assert main(["clusterupdate", tdb.path, new.path,
+                     prefix + "_cluster.tsv", path, str(tmp_path / dev),
+                     "--device", dev, "-v", "1"]) == 0
+        torch.cuda.synchronize()
+        assert (tk.sw_scores_pairs.launches > before) == (dev == "cuda")
+        out[dev] = open(path, "rb").read()
+    assert out["cuda"] == out["cpu"]
+    members = sorted(line.split(b"\t")[1] for line in out["cpu"].splitlines())
+    assert members == sorted(n.encode() for n in new.names)
+
+
+def test_msa2profile_search_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """result2msa and msa2profile --seq-db of a search -a, then `search` of
+    the profile DB --gpu 1 -a: the same result DB on cuda as on cpu (host
+    gates); on cuda the gapless kernel (PSSM shape) and the SW kernel
+    launch."""
+    from foldseek_tpu_torch.cli import main
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    tdb, qdb = _fixture_dbs(tmp_path, 400, 4)
+    d = str(tmp_path)
+    assert main(["search", qdb.path, tdb.path, f"{d}/res", f"{d}/tmp",
+                 "--gpu", "1", "-a", "--max-seqs", "100", "--device", "cpu",
+                 "-v", "1"]) == 0
+    assert main(["result2msa", qdb.path, tdb.path, f"{d}/res", f"{d}/msa",
+                 "-v", "1"]) == 0
+    assert main(["msa2profile", f"{d}/msa", f"{d}/prof", "--seq-db",
+                 qdb.path, "-v", "1"]) == 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = (tg.gapless_scores_batch.launches,
+                  tk.sw_scores_pairs.launches)
+        res = f"{d}/pres_{dev}"
+        assert main(["search", f"{d}/prof", tdb.path, res, res + "_tmp",
+                     "--gpu", "1", "-a", "--device", dev, "-v", "1"]) == 0
+        torch.cuda.synchronize()
+        after = (tg.gapless_scores_batch.launches,
+                 tk.sw_scores_pairs.launches)
+        assert all(a > b for a, b in zip(after, before)) == (dev == "cuda")
+        out[dev] = open(res, "rb").read()
+    assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 100

@@ -4,13 +4,18 @@
     python3 tools/torch_workflow_parity_seconds.py [--entries 2000]
         [--workflows easy_cluster,clusearch,rbh,multimer]
         [--multimercluster-entries 120,240]
+        [--groups taxonomy,msa_profile+swapresults,...]
 
 Builds the DBs as chip_smoke.py does (the fixture base expanded by
 `synth_db`: 16 queries, `--entries` parity targets, both regrouped into
 two-chain complexes for the multimer search) and runs each workflow of the
 port on the CPU with the host's gates, printing one line a workflow:
-"<name> <entries> entries: <seconds> s". It needs no GPU; it tells what a
-parity size costs the smoke run before the card is asked.
+"<name> <entries> entries: <seconds> s". `--groups` runs groups of
+chip_smoke.py's own phase-7 comparisons (names joined by "+" share one
+group, as in PARITY_GROUPS) through its `parity_side` on the cpu, over the
+inputs of its `parity_inputs` with `--entries` parity targets, one torch
+thread as in a worker of an 8-core host's two. It needs no GPU; it tells
+what a parity size costs the smoke run before the card is asked.
 """
 from __future__ import annotations
 
@@ -29,6 +34,9 @@ def main() -> int:
     ap.add_argument("--workflows",
                     default="easy_cluster,clusearch,rbh,multimer")
     ap.add_argument("--multimercluster-entries", default="120")
+    ap.add_argument("--groups", default="",
+                    help="chip_smoke.py phase-7 groups, e.g. "
+                         "taxonomy,msa_profile+swapresults")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -78,6 +86,16 @@ def main() -> int:
             timed("multimercluster", n, lambda: easy_multimer_cluster(
                 mm.path, os.path.join(work, f"mmclu{n}"),
                 os.path.join(work, f"mmclu_tmp{n}"), SearchParams(), cpu))
+        groups = [tuple(g.split("+")) for g in args.groups.split(",") if g]
+        if groups:
+            paths = cs.parity_inputs(base, pdb, qdb, work)
+            torch.set_num_threads(1)
+            os.environ["FOLDSEEK_TPU_FORK"] = "0"
+            for group in groups:
+                out, _ = cs.parity_side(group, paths, "cpu")
+                for name, (_outputs, seconds) in out.items():
+                    print(f"{name} {pdb.size} entries: {seconds:.1f} s",
+                          flush=True)
     return 0
 
 
