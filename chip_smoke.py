@@ -25,7 +25,7 @@ Phases (any failure exits nonzero and prints no result line):
      gapless and the SW kernel must have launched in the cold run. Once with
      the TM/LDDT gates as the card runs them by default and once with
      FOLDSEEK_TPU_DEVICE_GATES forcing the other side (1: device fleets, 0:
-     the host's batch_gates), then twelve warm runs in turns (six pairs,
+     the host's batch_gates), then six warm runs in turns (three pairs,
      alternating which side runs first); the two sides' records are compared hit by hit (equal hit sets and backtraces; TM and
      LDDT within 2e-3, the structure-bit score within 1).
   5b. the gate fleet alone, on that run's own accepted hits: the device
@@ -141,6 +141,26 @@ Phases (any failure exits nonzero and prints no result line):
      placed once, the removed ones gone; the SW kernel counted); (e) warmup
      over phase 12's indexed copy of the targets (both kernels counted).
      Its numbers are the line before the kernels' line.
+ 15. distribution (phase_distributed): two ranks of
+     `python -m foldseek_tpu_torch.parallel.worker` share the card over gloo
+     and run the sharded prefilter of the queries against the target DB (K1
+     on each rank's row range, one all_gather of the [q, k] candidates), the
+     long query, distributed_search (K1, then K3 on each rank's queries and
+     the all_gather of record lines; host gates), cluster_db of phase 7's
+     workflow DB and multimer_search --gpu 1 of its complexes; meanwhile a
+     one-rank NCCL world runs the sharded prefilter, gathering on the card.
+     Each rank's lists equal the single-process prefilter's (-c 0), its m8
+     phase 5's host-gates m8, its clusters and multimer lines phase 7's cuda
+     side; every gloo rank launched K1 and K3, the NCCL rank K1. Each rank's
+     launches, seconds and busy time (torch.profiler) are the
+     `{"distributed": ...}` line; the launches are the kernels' line's
+     `distributed` path.
+ 16. the 41 file verbs (phase_file_verbs), each once through the
+     command line over the parity DB and phase 5's mode-1 result DB, and the
+     round trips that need no reference (compress / decompress, splitdb +
+     concatdbs, createsubdb of every key, db2tar + tar2db, convert2foldcomp
+     + structureto3didescriptor, apply of cat, filterdb + subtractdbs +
+     mergedbs); the seconds of each verb go to the json.
   8. boundaries: both kernels vs their plain versions, exact, at the shapes
      where their branches change: slot and query lengths just below, at and
      above every instance and pass boundary, a batch mixing a 20-row and a
@@ -148,9 +168,9 @@ Phases (any failure exits nonzero and prints no result line):
      length, a stack whose caps force the 32-bit gapless instance.
 ptxas's registers, shared memory and spills of every instance are copied
 from the nvcc logs; a spill fails the run.
-Before the card's line come four JSON lines: the gates', phase 13's, phase
-14's, and each kernel's launches, error, times and bound; the last line is {"ok":
-true, "device": {...}}. Details go to DIR/chip_smoke.json and
+Before the card's line come five JSON lines: the gates', phase 13's, phase
+14's, phase 15's, and each kernel's launches, error, times and bound; the
+last line is {"ok": true, "device": {...}}. Details go to DIR/chip_smoke.json and
 DIR/nvcc_*.log (default foldseek_tpu_torch/build/smoke/, which git ignores).
 
 The bound of a kernel is the larger of two times: the bytes it must move
@@ -211,8 +231,10 @@ NO_LIBRARY = None              # no single PyTorch call computes these DPs
 MULTIMER_CLUSTER_ENTRIES = 120
 # entries phase 9 clusters: one organism's predicted structures (the AFDB
 # proteomes of yeast and human hold about 6,000 and 23,000 models). 20,000
-# took the whole script to 1,238 s of its 1,200 on a slow host, so 10,000.
-CLUSTER_ENTRIES = 10_000
+# took the whole script to 1,238 s of its 1,200 on a slow host, so 10,000;
+# with phases 15 and 16 that took it past 1,000 s on a host like that one,
+# so a yeast-sized 6,000.
+CLUSTER_ENTRIES = 6_000
 
 
 def log(msg: str) -> None:
@@ -791,11 +813,12 @@ def phase_e2e(dev, tdb, qdb, mode, report, name=None, gates=""):
 
 def phase_gate_turns(dev, tdb, qdb, report):
     """Warm mode-1 searches with the host's gates and with the device fleets
-    in turns on the same card, six pairs alternating which side runs first:
-    the end-to-end side of the crossover."""
+    in turns on the same card, three pairs alternating which side runs
+    first (six until phases 15 and 16 needed the time): the end-to-end side
+    of the crossover."""
     import statistics
     turns = []
-    for gates in ("0", "1", "1", "0") * 3:
+    for gates in ("0", "1", "1", "0", "0", "1"):
         with gates_env(gates):
             _res, _lines, rec = counted_search(qdb, tdb, dev, 1)
         turns.append(dict(gates="device" if gates == "1" else "host",
@@ -1989,7 +2012,8 @@ def phase_parity(dev, base, pdb, qdb, work, report):
     entries); easy-multimercluster's two files on a smaller complex DB. The
     cpu side runs in PARITY_CPU_WORKERS spawned processes while this one
     runs the cuda side. Then mode 1 with the device gates on the card
-    against the host gates on the cpu, inside the band of phase 5."""
+    against the host gates on the cpu, inside the band of phase 5. Returns
+    the inputs' paths and the cuda side's outputs by name."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2041,6 +2065,8 @@ def phase_parity(dev, base, pdb, qdb, work, report):
     report["parity_mode1_device_gates"] = compare_gates(
         host_cpu, res_gpu, f"parity mode 1, {pdb.size} targets: device gates "
                            "on cuda vs host gates on cpu")
+    return paths, {name: got for gpu, _ in on_gpu
+                   for name, (got, _) in gpu.items()}
 
 # --- slice 8: taxonomy, the MSA chain, swapresults, clusterupdate, warmup -----
 
@@ -2693,6 +2719,328 @@ def phase_prostt5(dev, tdb, qdb, pdb, work, report, cfg=None):
     return paths
 
 
+# --- distribution over torch.distributed, the file verbs --------------------
+
+# intra-op threads of each rank of phase 15: with more, the ranks' spinning
+# waits in the gloo collectives starve the host (8 threads a rank made a
+# 2-rank CPU run 19 x slower than 1)
+RANK_THREADS = 2
+# seconds a rank of phase 15 may take, start-up included
+RANK_TIMEOUT = 300
+
+
+def spawn_ranks(out: str, size: int, args, backend: str, device):
+    """`size` ranks of `python -m foldseek_tpu_torch.parallel.worker` on
+    `device` (all on the first card: no LOCAL_RANK is set) meeting in a file
+    store beside `out`, host gates, each logging to OUT.<rank>.log: the
+    processes."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(RANK_THREADS),
+               FOLDSEEK_TPU_FORK="0", FOLDSEEK_TPU_DEVICE_GATES="0",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    for r in range(size):
+        with open(f"{out}.{r}.log", "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "foldseek_tpu_torch.parallel.worker",
+                 out, *map(str, args), "--init-method",
+                 f"file://{out}.store", "--world-size", str(size), "--rank",
+                 str(r), "--device", str(device), "--backend", backend,
+                 "--timeout", str(RANK_TIMEOUT)], env=env, stdout=log_file,
+                stderr=subprocess.STDOUT, cwd=REPO))
+    return procs
+
+
+def wait_ranks(procs, out: str, deadline: float):
+    """Each rank's JSON output once all exited 0 by `deadline`; else every
+    rank is killed and the first failure raised with its log's tail."""
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if p.returncode != 0:
+                with open(f"{out}.{r}.log") as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"rank {r} of {out} exited "
+                                     f"{p.returncode}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r in range(len(procs)):
+        with open(f"{out}.{r}.json") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def phase_distributed(dev, tdb, qdb, work, host_m8: bytes, parity, report):
+    """15. distribution: two ranks of the port's worker sharing cuda:0 over
+    gloo run the sharded prefilter and the long query over the target DB,
+    distributed_search (mode 1, backtraces, host gates), cluster_db of phase
+    7's workflow DB and multimer_search --gpu 1 of its complexes; at the same
+    time a one-rank NCCL world runs the sharded prefilter, gathering on the
+    card. Each rank's lists must equal the single-process prefilter's (-c
+    0), its m8 phase 5's host-gates m8, its clusters and multimer lines
+    phase 7's cuda side. Returns the launches of every rank, summed."""
+    import numpy as np
+
+    from foldseek_tpu_torch.cluster.workflow import write_cluster_tsv
+    from foldseek_tpu_torch.db import load_db
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search.ungapped import resident_prefilter
+    t_phase = time.perf_counter()
+    paths, on_gpu = parity
+    d = os.path.join(work, "distributed")
+    os.makedirs(d)
+    pair = os.path.join(d, "gloo")
+    one = os.path.join(d, "nccl")
+    procs = {"gloo": spawn_ranks(pair, 2, [
+        "--queries", qdb.path, "--targets", tdb.path, "--cluster-db",
+        paths["workflow"], "--multimer", paths["complex_queries"],
+        paths["complex_targets"], "--multimer-gpu"], "gloo", dev),
+        "nccl": spawn_ranks(one, 1, ["--queries", qdb.path, "--targets",
+                                     tdb.path, "--skip-search"], "nccl", dev)}
+    seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
+    single = resident_prefilter(tdb, dev)
+    params = SearchParams()
+    want = {"prefilter_0": [[list(h) for h in q]
+                            for q in single.query_batch(seqs, params)],
+            "long": [list(h) for h in single.query(np.concatenate(seqs),
+                                                   params)],
+            "search": host_m8.decode(),
+            "cluster": read_bytes(os.path.join(paths["out"], "cuda",
+                                               "clu_cluster.tsv")),
+            "multimer": on_gpu["multimer"][0]}
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    ranks = {name: wait_ranks(p, os.path.join(d, name), deadline)
+             for name, p in procs.items()}
+    workflow = load_db(paths["workflow"])
+
+    def same(name, got) -> bool:
+        if name == "cluster":
+            tsv = os.path.join(d, "clusters.tsv")
+            write_cluster_tsv(workflow, {k: v for k, v in got}, tsv)
+            return read_bytes(tsv) == want[name]
+        if name == "multimer":
+            return ("\n".join(got) + "\n").encode() == want[name]
+        return got == want[name]
+
+    rec = dict(ranks=[], launches=dict(gapless=0, gapless_dual=0, sw=0))
+    bad = []
+    for backend, outs in ranks.items():
+        for out in outs:
+            r = dict(backend=backend, rank=out["rank"], size=out["size"],
+                     paths={})
+            for name, p in out["paths"].items():
+                busy = p.get("device_busy_ms")
+                r["paths"][name] = dict(
+                    seconds=p["seconds"], launches=p["launches"],
+                    device_busy_ms=busy,
+                    device_idle_share=None if busy is None
+                    else 1 - busy / 1e3 / p["seconds"],
+                    stages={k: v for k, v in p["stages"].items()
+                            if k in WORKFLOW_STAGES + STAGES
+                            or k.startswith("cluster")},
+                    identical=same(name, p["result"]))
+                for k, v in p["launches"].items():
+                    rec["launches"][k] += v
+                if not r["paths"][name]["identical"]:
+                    bad.append(f"{backend} rank {out['rank']} {name}")
+            rec["ranks"].append(r)
+            log(f"distributed {backend} rank {out['rank']}/{out['size']}: "
+                + "; ".join(f"{n} {p['seconds']:.2f} s, launches "
+                            f"{p['launches']}, busy {p['device_busy_ms']} ms,"
+                            f" identical {p['identical']}"
+                            for n, p in r["paths"].items()))
+    if bad:
+        raise AssertionError(f"distributed results differ from the single "
+                             f"process: {bad}")
+    for r in rec["ranks"]:
+        launched = r["paths"]["search" if r["backend"] == "gloo"
+                              else "prefilter_0"]["launches"]
+        if not launched["gapless"] > 0 or (r["backend"] == "gloo"
+                                           and not launched["sw"] > 0):
+            raise AssertionError(f"{r['backend']} rank {r['rank']}: a "
+                                 f"kernel did not launch: {launched}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    report["distributed"] = rec
+    log(f"phase 15 seconds: {rec['seconds']:.1f}")
+    return rec["launches"]
+
+
+def phase_file_verbs(qdb, tdb, pdb, mode1_res: str, work, report):
+    """16. each of the 41 file verbs once through the command line, over the
+    parity DB and phase 5's mode-1 result DB, with the round trips that need
+    no reference: compress / decompress is the identity, splitdb then
+    concatdbs and createsubdb of every key give back the DB, db2tar then
+    tar2db keeps every member, convert2foldcomp of the writer's own output
+    keeps every 3Di letter, apply of `cat` gives
+    back the result DB, mergedbs of a filterdb and its subtractdbs gives back
+    every record. Each verb's seconds go to the json."""
+    import contextlib
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from foldseek_tpu_torch.cli import main as port_main
+    from foldseek_tpu_torch.db import is_db, load_db
+    from foldseek_tpu_torch.search.resultdb import read_result_db
+    t_phase = time.perf_counter()
+    d = os.path.join(work, "file_verbs")
+    os.makedirs(d)
+    seconds = {}
+
+    def verb(*argv, quiet=True) -> str:
+        """One verb through the port's command line; its stdout."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = port_main([*map(str, argv), *(("-v", "1") if quiet else ())])
+        seconds[argv[0]] = seconds.get(argv[0], 0.0) + time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{argv[0]} exited {rc}")
+        return buf.getvalue()
+
+    def db_arrays(path):
+        db = load_db(path)
+        return (list(db.keys), db.names, db.headers, db.aa, db.ss, db.ca,
+                db.mask, db.offsets)
+
+    def same_db(a, b) -> bool:
+        return all(np.array_equal(np.asarray(x), np.asarray(y))
+                   for x, y in zip(db_arrays(a), db_arrays(b)))
+
+    def records(path) -> int:
+        return sum(len(v) for v in read_result_db(path)[0].values())
+
+    def p(name):
+        return os.path.join(d, name)
+
+    P, R = pdb.path, mode1_res
+    # DB housekeeping
+    with open(p("all_keys"), "w") as f:
+        f.writelines(f"{int(k)}\n" for k in pdb.keys)
+    verb("createsubdb", p("all_keys"), P, p("sub"))
+    sub_same = same_db(p("sub"), P)
+    verb("splitdb", P, p("split"), "--split", "2")
+    verb("concatdbs", p("split_0_2"), p("split_1_2"), p("cat"),
+         "--preserve-keys")
+    verb("diffseqdbs", P, p("sub"), p("removed"), p("kept"), p("new"))
+    verb("mvdb", p("sub"), p("sub_moved"), quiet=False)
+    verb("rmdb", p("sub_moved"), quiet=False)
+    verb("lndb", P, p("linked"), quiet=False)
+    verb("aliasdb", P, p("aliased"), quiet=False)
+    with open(p("keymap"), "w") as f:
+        f.writelines(f"{int(k)}\t{int(k) + 10_000_000}\n" for k in pdb.keys)
+    verb("renamedbkeys", p("keymap"), P, p("renamed"))
+    verb("setextendeddbtype", p("linked"), "--extended-dbtype", "2")
+    for alias in ("makepaddeddb", "makepaddedseqdb", "mmcreateindex"):
+        verb(alias, p("split_0_2"))
+    verb("appenddbtoindex", qdb.path, p("split_0_2"), "--id-list", "500")
+    verb("compress", R, p("res.zst"), quiet=False)
+    verb("decompress", p("res.zst"), p("res"), quiet=False)
+    kind = verb("dbtype", R, quiet=False)
+    viewed = verb("view", P, "--id-list", ",".join(
+        str(int(k)) for k in pdb.keys[:5]), quiet=False)
+    version = verb("version", quiet=False)
+    verb("prefixid", R, p("prefixed"))
+    with open(R) as src, open(p("res.tsv"), "w") as dst:
+        dst.writelines(line for line in src if not line.startswith("#"))
+    verb("tsv2db", p("res.tsv"), p("from_tsv"))
+    verb("db2tar", P, p("parity.tar"))
+    verb("tar2db", p("parity.tar"), p("from_tar"))
+    verb("unpackdb", R, p("unpacked"))
+    # result DBs
+    verb("sortresult", R, p("sorted"))
+    # the median score splits the records
+    scores = [r.score for rs in read_result_db(R)[0].values() for r in rs]
+    verb("filterdb", R, p("filtered"), "--filter-column", "2",
+         "--comparison-operator", "ge", "--comparison-value",
+         int(np.median(scores)))
+    verb("subtractdbs", R, p("filtered"), p("rest"))
+    verb("mergedbs", p("filtered"), p("rest"), p("merged"))
+    verb("createtsv", qdb.path, tdb.path, R, p("res_named.tsv"))
+    verb("result2flat", qdb.path, tdb.path, R, p("flat"))
+    verb("result2repseq", tdb.path, R, p("repseq.fasta"))
+    with open(p("clu.tsv"), "w") as f:
+        f.writelines(f"{pdb.names[i - i % 4]}\t{pdb.names[i]}\n"
+                     for i in range(pdb.size))
+    verb("createseqfiledb", P, p("clu.tsv"), p("seqfile"))
+    verb("result2stats", R, p("stats"), "--stat", "mean")
+    verb("summarizeheaders", qdb.path, tdb.path, R, p("heads"))
+    verb("summarizeresult", R, p("summary"))
+    verb("extractalignedregion", qdb.path, tdb.path, R, p("regions"))
+    # -v before the positionals: everything after the program is its own
+    verb("apply", "-v", "1", R, p("applied"), "--", sys.executable, "-c",
+         "import sys; sys.stdout.write(sys.stdin.read())", quiet=False)
+    # structures out
+    verb("convert2pdb", P, p("parity.pdb"))
+    verb("convert2fasta", P, p("parity.fasta"))
+    fcz = os.path.join(REPO, "tests", "golden", "d1asha.fcz")
+    sup = os.path.join(REPO, "tests", "golden", "msa", "sup")
+    # foldcomp quantizes torsions: re-encoding the repo's .fcz moves 4 of its
+    # 147 3Di letters once, and a structure that came out of the writer
+    # keeps every letter through another round
+    verb("convert2foldcomp", fcz, sup, p("fcz_db"))
+    verb("convert2foldcomp", p("fcz_db"), p("fcz_db2"))
+    verb("structureto3didescriptor", p("fcz_db"), p("desc.tsv"))
+    verb("structureto3didescriptor", p("fcz_db2"), p("desc_round.tsv"))
+
+    def letters(path):
+        with open(path) as f:
+            return [line.split("\t")[2] for line in f]
+
+    fasta = open(p("parity.fasta")).read().split("\n")
+    with tarfile.open(p("parity.tar")) as tar:
+        members = tar.getnames()
+    with open(p("from_tar") + ".lookup") as f:
+        tar_lookup = [line.rstrip("\n").split("\t")[1] for line in f]
+    n_res = records(R)
+    checks = {
+        "createsubdb of every key gives back the DB, mvdb and rmdb take it":
+            sub_same and not os.path.exists(p("sub"))
+            and not os.path.exists(p("sub_moved")),
+        "splitdb then concatdbs gives back the DB": same_db(p("cat"), P),
+        "compress then decompress is the identity":
+            read_bytes(p("res")) == read_bytes(R),
+        "db2tar then tar2db keeps every member":
+            members == [f"{n}.pdb" for n in pdb.names] == tar_lookup,
+        "convert2foldcomp then structureto3didescriptor keeps the 3Di":
+            letters(p("desc_round.tsv")) == letters(p("desc.tsv")) != [],
+        "apply of cat gives back the result DB":
+            read_bytes(p("applied")) == read_bytes(R),
+        "mergedbs of filterdb and its subtractdbs keeps every record":
+            records(p("merged")) == n_res == records(p("sorted"))
+            == records(p("from_tsv")) and 0 < records(p("filtered")) < n_res,
+        "lndb, aliasdb and renamedbkeys keep the entries":
+            same_db(p("linked"), P) and same_db(p("aliased"), P)
+            and list(load_db(p("renamed")).keys)
+            == [int(k) + 10_000_000 for k in pdb.keys],
+        "diffseqdbs of the DB and its full subset keeps every entry":
+            open(p("removed")).read() == open(p("new")).read() == ""
+            and len(open(p("kept")).readlines()) == pdb.size,
+        "the index of the split DB holds the appended queries":
+            is_db(os.path.join(p("split_0_2"), "index", "appended", "500")),
+        "dbtype, view, version and unpackdb print what they should":
+            kind == "Alignment\n" and viewed.count(">") == 5
+            and "0.1.0" in version
+            and len(os.listdir(p("unpacked"))) == qdb.size,
+        "convert2fasta writes every entry": len(fasta) == 2 * pdb.size + 1,
+    }
+    rec = dict(seconds_by_verb=seconds, checks=checks, records=n_res,
+               entries=pdb.size)
+    fail = [name for name, ok in checks.items() if not ok]
+    rec["seconds"] = time.perf_counter() - t_phase
+    report["file_verbs"] = rec
+    log(f"file verbs: {len(seconds)} verbs over {pdb.size} entries and "
+        f"{n_res} records, {len(checks) - len(fail)}/{len(checks)} round "
+        f"trips hold; phase 16 seconds: {rec['seconds']:.1f}")
+    if fail:
+        raise AssertionError(f"file verbs: {fail}")
+
+
 def phase_boundaries(dev, report):
     """Both kernels against their plain versions, exact, where their
     branches change: every instance and pass boundary, a 20-row slot beside
@@ -2915,7 +3263,7 @@ def main() -> int:
         s3 = phase_mode3_kernel(card, dev, tdb, qdb,
                                 resident_panels(tdb, dev), report)
         paths.update(phase_verbs_server(dev, tdb, qdb, work, host_m8, report))
-        phase_parity(dev, base, pdb, qdb, work, report)
+        parity = phase_parity(dev, base, pdb, qdb, work, report)
         clu_db, clusters, paths["cluster"] = phase_cluster(
             dev, base, work, CLUSTER_ENTRIES, report)
         paths["rbh"] = phase_rbh(dev, clu_db, qdb, work, report)
@@ -2925,6 +3273,10 @@ def main() -> int:
         paths["multimer"] = phase_multimer(dev, tdb, qdb, work, report)
         paths.update(phase_workflow_verbs(dev, base, tdb, qdb, work, mode1_res,
                                           report))
+        paths["distributed"] = phase_distributed(dev, tdb, qdb, work, host_m8,
+                                                 parity, report)
+        del parity
+        phase_file_verbs(qdb, tdb, pdb, mode1_res, work, report)
         paths.update(phase_prostt5(dev, tdb, qdb, pdb, work, report))
         phase_boundaries(dev, report)
     loaded = sorted(k for k in sys.modules if k in ("jax", "foldseek_tpu")
@@ -2960,6 +3312,7 @@ def main() -> int:
     print(json.dumps({"gates": report["gates"]}))
     print(json.dumps({"prostt5": report["prostt5"]}))
     print(json.dumps({"workflow_verbs": report["workflow_verbs"]}))
+    print(json.dumps({"distributed": report["distributed"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,15 +18,26 @@ mergeresultsbyset, expandmultimer, scoremultimer, createmultimerreport and
 their complex aliases), swapresults (swapdb), taxonomy (createtaxdb,
 addtaxonomy, filtertaxseqdb, lca, majoritylca, filtertaxdb, taxonomyreport,
 easy-taxonomy), the MSA -> profile chain (result2msa, filtera3m,
-msa2profile), clusterupdate and warmup. A verb name may carry the
-reference's `base:` prefix.
+msa2profile), clusterupdate and warmup; and the file utilities, which only
+read and write files: DB housekeeping (mvdb, rmdb, lndb / aliasdb,
+renamedbkeys, setextendeddbtype, appenddbtoindex, dbtype, view, compress,
+decompress, splitdb, concatdbs, createsubdb, diffseqdbs, prefixid, tsv2db,
+tar2db, db2tar, unpackdb, the createindex aliases makepaddeddb,
+makepaddedseqdb and mmcreateindex, version), result DBs (sortresult,
+subtractdbs, createtsv, mergedbs, filterdb, result2flat, result2repseq,
+createseqfiledb, result2stats, summarizeheaders, summarizeresult,
+extractalignedregion, apply) and structures out (convert2pdb,
+structureto3didescriptor, convert2foldcomp, convert2fasta): all 96 verbs of
+`foldseek_tpu`. A verb name may carry the reference's `base:` prefix.
 Flags, defaults and output bytes are those of `foldseek_tpu`'s verbs;
 `--gpu 1` selects the ungapped prefilter as in the reference's GPU mode and
 `--prefilter-mode 3` the ungapped + gapped mode that exists only on a GPU.
 `--device` picks where the stages of a verb that runs them go: `cuda` (the
 CUDA kernels, the default) or `cpu` (their plain PyTorch versions); createdb
 takes it for ProstT5; the other verbs that only read and write files take
-no `--device`.
+no `--device`. `easy-search --profile-dir D` writes a torch.profiler trace
+of the run into D. `version` prints foldseek_tpu's version number with the
+port's own description.
 """
 from __future__ import annotations
 
@@ -84,8 +95,9 @@ def _add_search_params(p: argparse.ArgumentParser):
                    help="1: search cluster reps, expand hits to members")
     p.add_argument("--index-server", type=str, default="")
     p.add_argument("--profile-dir", type=str, default="",
-                   help="write a profiler trace of the run to this dir "
-                        "(not ported)")
+                   help="easy-search: write a torch.profiler trace of the "
+                        "run (host and CUDA activity, Chrome trace JSON) to "
+                        "this dir; other verbs ignore it")
     p.add_argument("--threads", type=int, default=0,
                    help="host worker threads (0 = all cores; reference"
                         " PARAM_THREADS default)")
@@ -158,10 +170,6 @@ def _parser(prog: str, positionals) -> argparse.ArgumentParser:
 def _parse(p: argparse.ArgumentParser, argv):
     args = p.parse_args(argv)
     set_verbosity(args.verbosity)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir (a jax.profiler trace) is not ported; ROADMAP "
-            "queue 1 names torch.profiler as its replacement")
     return args, params_from_args(args), get_device(args.device)
 
 
@@ -532,6 +540,21 @@ def cmd_easy_search(argv) -> int:
     from .search.pipeline import easy_search
     args, params, device = _parse(
         _parser("easy-search", ("query", "target", "output", "tmp_dir")), argv)
+    if args.profile_dir:
+        # host + device trace for perf work (SURVEY 5: the reference only
+        # has per-stage wallclock)
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            easy_search(args.query, args.target, args.output, args.tmp_dir,
+                        params, device)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "easy_search_trace.json")
+        prof.export_chrome_trace(trace)
+        logger.info("torch.profiler trace written to %s", trace)
+        return 0
     easy_search(args.query, args.target, args.output, args.tmp_dir, params,
                 device)
     return 0
@@ -2031,6 +2054,1252 @@ def cmd_databases(argv) -> int:
     return 0
 
 
+# --- file utilities: DB housekeeping, result DBs, structures out (host only) --
+
+def cmd_convert2pdb(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch convert2pdb")
+    p.add_argument("db")
+    p.add_argument("output")
+    p.add_argument("--pdb-output-mode", type=int, default=0,
+                   help="0: multi-model file, 1: one file per complex, 2: per chain")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .ingest.convert2pdb import convert2pdb
+    convert2pdb(load_db(args.db), args.output, args.pdb_output_mode)
+    return 0
+
+
+def cmd_structureto3didescriptor(argv) -> int:
+    """Debug tool: per chain `name\\tAA\\t3Di\\tfeatures` where features are
+    the raw 10 per-residue encoder inputs, "%.3E" comma-joined (reference:
+    src/strucclustutils/structureto3didescriptor.cpp:137-155; zeros for
+    residues without a valid flank window)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch structureto3didescriptor")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("output")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+
+    from .ingest.createdb import _parse_structures, collect_input_files
+    from .ingest.encoder3di import encode_chain, states_to_string
+    with open(args.output, "w") as f:
+        for path in collect_input_files(args.inputs):
+            sts = _parse_structures(path)
+            # the reference's descriptor names entries by the input
+            # filename WITH extension (structureto3didescriptor.cpp uses
+            # the raw filename, unlike createdb's stripped sort key)
+            file_base = os.path.basename(path.split("::", 1)[-1])
+            for st in sts:
+                multi = len(st.chains) > 1
+                base = file_base if len(sts) == 1 else st.name
+                for ch in st.chains:
+                    if len(ch.aa) <= 3:
+                        continue
+                    n_arr, c_arr = ch.n, ch.c
+                    from .ingest.createdb import is_ca_only
+                    if is_ca_only(ch):
+                        from .ingest.backbone import rebuild_backbone
+                        n_arr, c_arr = rebuild_backbone(ch.ca, ch.aa)
+                    states, feats = encode_chain(ch.ca, n_arr, c_arr, ch.cb,
+                                                 return_features=True)
+                    name = base + (f"_{ch.name}" if multi else "")
+                    cols = ",".join(f"{v:.3E}" for v in feats.ravel())
+                    f.write(f"{name}\t{ch.aa}\t{states_to_string(states)}"
+                            f"\t{cols}\n")
+    return 0
+
+
+def cmd_convert2foldcomp(argv) -> int:
+    """Compress structures into a foldcomp (FCMP) database
+    (reference: src/strucclustutils/GemmiWrapper.cpp:895-945 GemmiToFoldcomp
+    + lib/foldcomp compress/writeStream; backbone N/CA/C per residue)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch convert2foldcomp")
+    p.add_argument("inputs", nargs="+", help="PDB/mmCIF/mmJSON files or dirs")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+
+    from .ingest.createdb import _parse_structures, collect_input_files
+    from .ingest.foldcomp import encode_fcz, write_foldcomp_db
+
+    def entries():
+        for path in collect_input_files(args.inputs):
+            for st in _parse_structures(path):
+                multi = len(st.chains) > 1
+                for ch in st.chains:
+                    if len(ch.aa) <= 3 or np.isnan(ch.n[:, 0]).all():
+                        continue
+                    name = f"{st.name}_{ch.name}" if multi else st.name
+                    blob = encode_fcz(
+                        np.nan_to_num(ch.n).astype(np.float32),
+                        np.nan_to_num(ch.ca).astype(np.float32),
+                        np.nan_to_num(ch.c).astype(np.float32),
+                        ch.aa, title="", chain=ch.name or "A",
+                        bfactor=ch.bfactor, idx_atom=1)
+                    yield name, blob
+
+    write_foldcomp_db(entries(), args.output_db)
+    logger.info("convert2foldcomp: wrote %s", args.output_db)
+    return 0
+
+
+def cmd_convert2fasta(argv) -> int:
+    """Sequence DB -> FASTA file (reference:
+    lib/mmseqs/src/util/convert2fasta.cpp). --use-ss emits the 3Di
+    strings instead of AA."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch convert2fasta")
+    p.add_argument("db")
+    p.add_argument("output_fasta")
+    p.add_argument("--use-ss", action="store_true")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    db = load_db(args.db)
+    get = db.get_ss_str if args.use_ss else db.get_aa_str
+    with open(args.output_fasta, "w") as f:
+        for i in range(db.size):
+            f.write(f">{db.headers[i]}\n{get(i)}\n")
+    logger.info("convert2fasta: %d entries -> %s", db.size, args.output_fasta)
+    return 0
+
+
+def cmd_createsubdb(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch createsubdb")
+    p.add_argument("id_list", help="file with one key or entry name per line")
+    p.add_argument("db")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import StructDBWriter, load_db
+    db = load_db(args.db)
+    wanted = set()
+    for line in open(args.id_list):
+        line = line.strip()
+        if line:
+            wanted.add(line)
+    writer = StructDBWriter(args.output_db)
+    writer.sources = db.sources or []
+    kept = 0
+    for i in range(db.size):
+        if str(int(db.keys[i])) in wanted or db.names[i] in wanted:
+            _copy_entry(writer, db, i)
+            kept += 1
+    writer.finish()
+    logger.info("createsubdb: kept %d/%d entries", kept, db.size)
+    return 0
+
+
+def cmd_splitdb(argv) -> int:
+    """Split a structure DB into N contiguous sub-DBs named
+    <out>_<i>_<N> (reference: lib/mmseqs/src/util/splitdb.cpp;
+    --split-aa balances by residue count like decomposeDomainByAminoAcid)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch splitdb")
+    p.add_argument("db")
+    p.add_argument("output_db")
+    p.add_argument("--split", type=int, required=True)
+    p.add_argument("--split-aa", action="store_true")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import StructDBWriter, load_db
+    db = load_db(args.db)
+    n = args.split
+    if n < 1 or n > db.size:
+        raise SystemExit("splitdb: split count must be in [1, db size]")
+    bounds = [0]
+    if args.split_aa:
+        total = db.total_residues
+        target, acc = total / n, 0
+        for i in range(db.size):
+            acc += db.entry_len(i)
+            if acc >= target * len(bounds) and len(bounds) < n:
+                bounds.append(i + 1)
+        # residue mass concentrated in late entries can leave fewer than
+        # n split points; pad with empty tail splits
+        while len(bounds) < n:
+            bounds.append(db.size)
+    else:
+        bounds = [round(i * db.size / n) for i in range(n)]
+    bounds.append(db.size)
+    for s in range(n):
+        out = f"{args.output_db}_{s}_{n}"
+        writer = StructDBWriter(out)
+        writer.sources = db.sources or []
+        for i in range(bounds[s], bounds[s + 1]):
+            _copy_entry(writer, db, i)
+        writer.finish()
+        logger.info("splitdb: %s <- entries [%d, %d)", out,
+                    bounds[s], bounds[s + 1])
+    return 0
+
+
+def cmd_concatdbs(argv) -> int:
+    """Concatenate two structure DBs into one (reference:
+    lib/mmseqs/src/commons/DBConcat.cpp: A's entries then B's; B's keys
+    are shifted past A's unless --preserve-keys)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch concatdbs")
+    p.add_argument("db_a")
+    p.add_argument("db_b")
+    p.add_argument("output_db")
+    p.add_argument("--preserve-keys", action="store_true")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+    from .db.storage import StructDBWriter, load_db
+    a, b = load_db(args.db_a), load_db(args.db_b)
+    writer = StructDBWriter(args.output_db)
+    # B's source-file (complex) ids must stay distinct from A's: fileids
+    # group multimer chains (complex_maps), so a clash would merge
+    # complexes across the inputs
+    writer.sources = list(a.sources or [])
+    fid_shift = len(writer.sources)
+    b_sources = list(b.sources or [])
+    if not b_sources and b.size and b.fileids is not None:
+        b_sources = [""] * (int(np.max(b.fileids)) + 1)
+    writer.sources += b_sources
+    for i in range(a.size):
+        _copy_entry(writer, a, i)
+    shift = 0 if args.preserve_keys else \
+        (int(a.keys.max()) + 1 if a.size else 0)
+    if args.preserve_keys:
+        clash = set(int(k) for k in a.keys) & set(int(k) for k in b.keys)
+        if clash:
+            raise SystemExit(f"concatdbs: --preserve-keys with "
+                             f"{len(clash)} clashing keys")
+    for i in range(b.size):
+        writer.add_entry(int(b.keys[i]) + shift, b.names[i], b.headers[i],
+                         np.asarray(b.get_aa(i)), np.asarray(b.get_ss(i)),
+                         np.asarray(b.get_ca(i)) if b.ca is not None else None,
+                         b.mask[b.offsets[i]:b.offsets[i + 1]],
+                         file_id=(int(b.fileids[i]) + fid_shift
+                                  if b.fileids is not None else fid_shift))
+    writer.finish()
+    logger.info("concatdbs: %d + %d entries -> %s", a.size, b.size,
+                args.output_db)
+    return 0
+
+
+def cmd_diffseqdbs(argv) -> int:
+    """Diff two versions of a structure DB by header (reference:
+    lib/mmseqs/src/util/diffseqdbs.cpp): writes removed old keys, an
+    old->new key mapping for kept entries, and new keys — the inputs of
+    an incremental clustering update. --use-seq-id additionally requires
+    identical sequences for a 'kept' match."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch diffseqdbs")
+    p.add_argument("old_db")
+    p.add_argument("new_db")
+    p.add_argument("removed_out", help="keys only in the old DB")
+    p.add_argument("mapping_out", help="old_key\\tnew_key for kept entries")
+    p.add_argument("new_out", help="keys only in the new DB")
+    p.add_argument("--use-seq-id", action="store_true")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    old, new = load_db(args.old_db), load_db(args.new_db)
+
+    def ident(db, i):
+        h = db.headers[i]
+        return (h, db.get_aa_str(i)) if args.use_seq_id else h
+
+    new_by_id = {}
+    for i in range(new.size):
+        new_by_id.setdefault(ident(new, i), []).append(int(new.keys[i]))
+    removed, kept = [], []
+    for i in range(old.size):
+        cands = new_by_id.get(ident(old, i))
+        if cands:
+            kept.append((int(old.keys[i]), cands.pop(0)))
+        else:
+            removed.append(int(old.keys[i]))
+    new_only = sorted(k for lst in new_by_id.values() for k in lst)
+    with open(args.removed_out, "w") as f:
+        f.writelines(f"{k}\n" for k in sorted(removed))
+    with open(args.mapping_out, "w") as f:
+        f.writelines(f"{a}\t{b}\n" for a, b in sorted(kept))
+    with open(args.new_out, "w") as f:
+        f.writelines(f"{k}\n" for k in new_only)
+    logger.info("diffseqdbs: %d removed, %d kept, %d new",
+                len(removed), len(kept), len(new_only))
+    return 0
+
+
+def cmd_mvdb(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch mvdb")
+    p.add_argument("src")
+    p.add_argument("dst")
+    args = p.parse_args(argv)
+    import shutil
+    shutil.move(args.src, args.dst)
+    return 0
+
+
+def cmd_rmdb(argv) -> int:
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch rmdb")
+    p.add_argument("db")
+    args = p.parse_args(argv)
+    import shutil
+    if os.path.isdir(args.db):
+        shutil.rmtree(args.db)
+    elif os.path.isfile(args.db):
+        os.unlink(args.db)
+    return 0
+
+
+def cmd_lndb(argv) -> int:
+    """Link a DB under a new path without copying payload (reference:
+    lib/mmseqs/src/util/lndb.cpp hardlinks every DB file; workflows use it
+    to alias large target DBs into tmp dirs)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch lndb")
+    p.add_argument("src")
+    p.add_argument("dst")
+    args = p.parse_args(argv)
+    _link_db(args.src, args.dst)
+    return 0
+
+
+def cmd_renamedbkeys(argv) -> int:
+    """Rename DB entry keys per a two-column mapping file (reference:
+    lib/mmseqs/src/util/renamedbkeys.cpp — rewrites the .index keys only,
+    payload untouched; workflows use it to re-key sub-DBs)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch renamedbkeys")
+    p.add_argument("mapping", help="TSV: <old_key> <new_key> per line")
+    p.add_argument("db")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    mapping = {}
+    with open(args.mapping) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                mapping[int(parts[0])] = int(parts[1])
+    from .db.storage import is_db
+    if is_db(args.db):
+        import numpy as np
+        _link_db(args.db, args.output_db)
+        keys_path = os.path.join(args.output_db, "keys.npy")
+        keys = np.load(keys_path).copy()
+        for i, k in enumerate(keys):
+            keys[i] = mapping.get(int(k), int(k))
+        os.unlink(keys_path)  # never write through a hardlink to the source
+        np.save(keys_path, keys)
+        # a taxonomy attachment references keys too: re-key it (also
+        # copy-on-write — the file is hardlinked to the source DB's)
+        map_path = os.path.join(args.output_db, "mapping.tsv")
+        if os.path.isfile(map_path):
+            lines = []
+            for line in open(map_path):
+                k, _, rest = line.partition("\t")
+                lines.append(f"{mapping.get(int(k), int(k))}\t{rest}")
+            os.unlink(map_path)
+            with open(map_path, "w") as f:
+                f.writelines(lines)
+        return 0
+    # flat alignment result DB: re-key the leading query column
+    from .search.resultdb import read_result_db, write_result_db
+    results, has_bt = read_result_db(args.db)
+    out = {mapping.get(qk, qk): rs for qk, rs in results.items()}
+    write_result_db(out, args.output_db, add_backtrace=has_bt)
+    return 0
+
+
+def cmd_setextendeddbtype(argv) -> int:
+    """Tag a DB with an extended dbtype flag (reference:
+    lib/mmseqs/src/util/setextendeddbtype.cpp — ORs flag bits into the
+    .dbtype; here recorded in the manifest)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch setextendeddbtype")
+    p.add_argument("db")
+    p.add_argument("--extended-dbtype", type=int, required=True)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import json
+    mpath = os.path.join(args.db, "manifest.json")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    manifest["extended_dbtype"] = (manifest.get("extended_dbtype", 0)
+                                   | args.extended_dbtype)
+    with open(mpath + ".part", "w") as f:
+        json.dump(manifest, f)
+    os.replace(mpath + ".part", mpath)
+    return 0
+
+
+def cmd_appenddbtoindex(argv) -> int:
+    """Attach extra DBs to a createindex artifact under named ids
+    (reference: lib/mmseqs/src/util/appenddbtoindex.cpp — structureindex.sh
+    packs the C-alpha and ss DBs into the .idx under reserved keys 500/502
+    so a search needs only the index). Our index lives inside the DB dir,
+    so satellites are already co-located; this registers extra payloads
+    under index/appended/<id> for the same single-artifact deployment."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch appenddbtoindex")
+    p.add_argument("dbs", nargs="+", help="DBs to append, then the index DB")
+    p.add_argument("--id-list", required=True,
+                   help="comma-separated numeric ids, one per appended DB")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    *srcs, index_db = args.dbs
+    ids = [int(x) for x in args.id_list.split(",") if x]
+    if len(ids) != len(srcs):
+        raise SystemExit("appenddbtoindex: --id-list length must match the"
+                         " number of appended DBs")
+    from .db.index import index_dir
+    idx = index_dir(index_db)
+    if not os.path.isfile(os.path.join(idx, "manifest.json")):
+        raise SystemExit(f"appenddbtoindex: {index_db} has no index"
+                         " (run createindex first)")
+    import json as _json
+    app_root = os.path.join(idx, "appended")
+    os.makedirs(app_root, exist_ok=True)
+    with open(os.path.join(idx, "manifest.json")) as f:
+        manifest = _json.load(f)
+    appended = manifest.setdefault("appended", {})
+    for src, key in zip(srcs, ids):
+        _link_db(src, os.path.join(app_root, str(key)))
+        appended[str(key)] = os.path.basename(src.rstrip("/"))
+    with open(os.path.join(idx, "manifest.json"), "w") as f:
+        _json.dump(manifest, f)
+    logger.info("appenddbtoindex: %d DBs under %s", len(srcs), app_root)
+    return 0
+
+
+def cmd_compress(argv) -> int:
+    """zstd-compress a flat DB file (reference: lib/mmseqs/src/util/
+    compress.cpp; DBWriter --compressed stores zstd frames). Structure
+    DBs are directories of binary arrays and are left to filesystem-level
+    compression like the reference's .idx."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch compress")
+    p.add_argument("db")
+    p.add_argument("output_db")
+    args = p.parse_args(argv)
+    from .utils import zstd
+    if not zstd.available():
+        raise SystemExit("compress: no zstd library available")
+    if os.path.isdir(args.db):
+        raise SystemExit("compress: only flat DB files are compressed"
+                         " (structure DBs are mmap-ready binary arrays)")
+    with open(args.db, "rb") as f:
+        data = f.read()
+    with open(args.output_db, "wb") as f:
+        f.write(zstd.compress(data))
+    return 0
+
+
+def cmd_decompress(argv) -> int:
+    """Inverse of compress (reference: lib/mmseqs/src/util/compress.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch decompress")
+    p.add_argument("db")
+    p.add_argument("output_db")
+    args = p.parse_args(argv)
+    from .utils import zstd
+    if not zstd.available():
+        raise SystemExit("decompress: no zstd library available")
+    with open(args.db, "rb") as f:
+        data = f.read()
+    with open(args.output_db, "wb") as f:
+        f.write(zstd.decompress(data))
+    return 0
+
+
+def cmd_dbtype(argv) -> int:
+    """Print the DB type (reference: lib/mmseqs/src/util/dbtype.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch dbtype")
+    p.add_argument("db")
+    args = p.parse_args(argv)
+    from .db.storage import is_db
+    if is_db(args.db):
+        import json as _json
+        with open(os.path.join(args.db, "manifest.json")) as f:
+            print(_json.load(f).get("kind", "structure"))
+        return 0
+    if not os.path.isfile(args.db):
+        print("Database does not exist")
+        return 1
+    with open(args.db) as f:
+        first = f.readline()
+    if first.startswith("#foldseek-tpu alnres"):
+        print("Alignment")
+    elif first.startswith("#foldseek-tpu msadb"):
+        print("A3M MSA")
+    elif first.startswith("#foldseek-tpu complexres"):
+        print("Multimer alignment")
+    else:
+        print("Generic")
+    return 0
+
+
+def cmd_view(argv) -> int:
+    """Print entry data to stdout (reference:
+    lib/mmseqs/src/util/view.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch view")
+    p.add_argument("db")
+    p.add_argument("--id-list", default="", help="comma-separated keys/names")
+    args = p.parse_args(argv)
+    wanted = set(x for x in args.id_list.split(",") if x)
+    from .db.storage import is_db, load_db
+    if is_db(args.db):
+        db = load_db(args.db)
+        for i in range(db.size):
+            if wanted and str(int(db.keys[i])) not in wanted \
+                    and db.names[i] not in wanted:
+                continue
+            print(f">{db.headers[i]}\n{db.get_aa_str(i)}")
+        return 0
+    with open(args.db) as f:
+        for line in f:
+            if line.startswith("#foldseek-tpu"):
+                continue
+            if wanted and line.partition("\t")[0] not in wanted:
+                continue
+            sys.stdout.write(line)
+    return 0
+
+
+def cmd_prefixid(argv) -> int:
+    """Prefix (or suffix) every entry line with its key, a mapping name,
+    or a fixed string (reference: lib/mmseqs/src/util/prefixid.cpp; the
+    TSV building block of the taxonomy/aggregation pipelines)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch prefixid")
+    p.add_argument("db", help="keyed flat DB (alignment/msa/generic TSV)")
+    p.add_argument("output_db")
+    p.add_argument("--prefix", default="", help="fixed string instead of key")
+    p.add_argument("--mapping-file", default="",
+                   help="key -> name TSV; prefix with the name")
+    p.add_argument("--suffix-mode", action="store_true",
+                   help="append instead of prepend")
+    p.add_argument("--tsv", action="store_true",
+                   help="plain TSV output (no DB header line)")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    mapping = {}
+    if args.mapping_file:
+        for line in open(args.mapping_file):
+            parts = line.split()
+            if len(parts) >= 2:
+                mapping[parts[0]] = parts[1]
+
+    def tag(key: str) -> str:
+        if args.prefix:
+            return args.prefix
+        if mapping:
+            if key not in mapping:
+                raise SystemExit(f"prefixid: key {key} not in mapping file")
+            return mapping[key]
+        return key
+
+    with open(args.db) as f, open(args.output_db, "w") as out:
+        first = f.readline()
+        header = first.startswith("#foldseek-tpu")
+        if not header:
+            f = [first] + f.readlines() if first else []
+        # no typed header on the output either way: replacing the key
+        # column with an arbitrary tag makes it a generic DB (the
+        # reference writes DBTYPE_OMIT_FILE / generic too)
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line == "\0":
+                continue
+            if "\t" in line:
+                key, _, body = line.partition("\t")
+            else:
+                key = body = line
+            if args.suffix_mode:
+                out.write(f"{body}\t{tag(key)}\n")
+            else:
+                out.write(f"{tag(key)}\t{body}\n")
+    return 0
+
+
+def cmd_tsv2db(argv) -> int:
+    """Flat TSV -> DB (reference: lib/mmseqs/src/util/tsv2db.cpp groups
+    consecutive same-key lines into entries). Alignment-shaped rows become
+    a typed alignment result DB; anything else stays a flat keyed TSV (the
+    same opaque-entry convention `apply` uses)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch tsv2db")
+    p.add_argument("input_tsv")
+    p.add_argument("output_db")
+    p.add_argument("--output-dbtype", type=int, default=5,
+                   help="5: alignment result (reference"
+                        " Parameters::DBTYPE_ALIGNMENT_RES), 0: generic")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.resultdb import parse_result_line, write_result_db
+    rows = []
+    with open(args.input_tsv) as f:
+        for line in f:
+            if line.strip():
+                rows.append(line.rstrip("\n"))
+    if args.output_dbtype == 5:
+        try:
+            out = {}
+            has_bt = False
+            for line in rows:
+                qkey, r = parse_result_line(line)
+                has_bt = has_bt or bool(r.backtrace)
+                out.setdefault(qkey, []).append(r)
+            write_result_db(out, args.output_db, add_backtrace=has_bt)
+            return 0
+        except (ValueError, IndexError):
+            logger.info("tsv2db: rows are not alignment-shaped; writing"
+                        " a generic keyed DB")
+    with open(args.output_db, "w") as f:
+        for line in rows:
+            f.write(line + "\n")
+    return 0
+
+
+def cmd_tar2db(argv) -> int:
+    """Pack the members of tar archive(s) into a keyed flat DB
+    (reference: lib/mmseqs/src/util/tar2db.cpp; inverse of db2tar).
+    Member names land in a .lookup-style mapping next to the output."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch tar2db")
+    p.add_argument("tars", nargs="+")
+    p.add_argument("output_db")
+    p.add_argument("--tar-include", default=".*",
+                   help="regex of member names to include")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import re
+    import tarfile
+    pat = re.compile(args.tar_include)
+    key = 0
+    with open(args.output_db, "w") as out, \
+            open(args.output_db + ".lookup", "w") as lk:
+        for tpath in args.tars:
+            with tarfile.open(tpath) as tar:
+                for m in tar:
+                    if not m.isfile() or not pat.search(m.name):
+                        continue
+                    data = tar.extractfile(m).read()
+                    try:
+                        text = data.decode()
+                    except UnicodeDecodeError:
+                        import base64
+                        text = base64.b64encode(data).decode()
+                    for line in text.splitlines():
+                        out.write(f"{key}\t{line}\n")
+                    lk.write(f"{key}\t{m.name}\n")
+                    key += 1
+    logger.info("tar2db: %d members -> %s", key, args.output_db)
+    return 0
+
+
+def cmd_db2tar(argv) -> int:
+    """Export every DB entry as a PDB member of a tar archive
+    (reference: lib/mmseqs/src/util/db2tar.cpp — entry bytes as files)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch db2tar")
+    p.add_argument("db")
+    p.add_argument("output_tar")
+    p.add_argument("--tar-include", default=".*")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import io
+    import re
+    import tarfile
+
+    from .db.storage import load_db
+    from .ingest.convert2pdb import _atom_lines, _chain_letter, _title_lines
+    db = load_db(args.db)
+    pat = re.compile(args.tar_include)
+    n = 0
+    with tarfile.open(args.output_tar, "w") as tar:
+        for i in range(db.size):
+            name = db.names[i]
+            if not pat.search(name):
+                continue
+            lines = _title_lines(db.headers[i]) + \
+                _atom_lines(db, i, _chain_letter(db, i)) + ["END"]
+            blob = ("\n".join(lines) + "\n").encode()
+            info = tarfile.TarInfo(name=f"{name}.pdb")
+            info.size = len(blob)
+            tar.addfile(info, io.BytesIO(blob))
+            n += 1
+    logger.info("db2tar: %d entries -> %s", n, args.output_tar)
+    return 0
+
+
+def cmd_unpackdb(argv) -> int:
+    """Explode a DB into one file per entry (reference:
+    lib/mmseqs/src/util/unpackdb.cpp). Accepts our keyed flat DBs (msadb,
+    alignment result DBs) and structure DBs (per-chain FASTA)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch unpackdb")
+    p.add_argument("input_db")
+    p.add_argument("output_dir")
+    p.add_argument("--unpack-suffix", default="")
+    p.add_argument("--unpack-name-mode", type=int, default=1,
+                   help="0: entry accession/name, 1: numeric key")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    def emit(name_parts, payload: str):
+        name = str(name_parts[1] if args.unpack_name_mode == 0
+                   and len(name_parts) > 1 else name_parts[0])
+        name = name.replace("/", "_") + args.unpack_suffix
+        dest = os.path.join(args.output_dir, name)
+        if name.endswith(".gz"):
+            import gzip
+            with gzip.open(dest, "wt") as g:
+                g.write(payload)
+        else:
+            with open(dest, "w") as g:
+                g.write(payload)
+
+    n = 0
+    from .db.storage import is_db
+    if is_db(args.input_db):
+        from .db.storage import load_db
+        db = load_db(args.input_db)
+        for i in range(db.size):
+            emit((int(db.keys[i]), db.names[i]),
+                 f">{db.headers[i]}\n{db.get_aa_str(i)}\n")
+            n += 1
+        logger.info("unpackdb: %d entries -> %s", n, args.output_dir)
+        return 0
+    with open(args.input_db) as f:
+        first = f.readline()
+        if first.startswith("#foldseek-tpu msadb"):
+            parts, buf = None, []
+            for line in f:
+                if line.startswith("#entry "):
+                    if parts is not None:
+                        emit(parts, "".join(buf))
+                        n += 1
+                    parts, buf = line.split()[1:3], []
+                elif line.rstrip("\n") != "\0":
+                    buf.append(line)
+            if parts is not None:
+                emit(parts, "".join(buf))
+                n += 1
+        elif first.startswith("#foldseek-tpu alnres"):
+            from .search.resultdb import read_result_db
+            from .search.results import result_to_line
+            results, has_bt = read_result_db(args.input_db)
+            for qkey in sorted(results):
+                emit((qkey,), "".join(result_to_line(r, has_bt) + "\n"
+                                      for r in results[qkey]))
+                n += 1
+        else:  # generic keyed TSV: group by leading key
+            groups: dict = {}
+            for line in [first] + f.readlines():
+                if not line.strip():
+                    continue
+                key, _, rest = line.partition("\t")
+                groups.setdefault(key, []).append(rest)
+            for key in groups:
+                emit((key,), "".join(groups[key]))
+                n += 1
+    logger.info("unpackdb: %d entries -> %s", n, args.output_dir)
+    return 0
+
+
+def cmd_sortresult(argv) -> int:
+    """Re-sort every query's records by the canonical hit order
+    (reference: lib/mmseqs/src/util/sortresult.cpp, Matcher::compareHits)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch sortresult")
+    p.add_argument("result_db")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.resultdb import read_result_db, write_result_db
+    from .search.results import compare_hits
+    results, has_bt = read_result_db(args.result_db)
+    out = {qk: sorted(rs, key=compare_hits) for qk, rs in results.items()}
+    write_result_db(out, args.output_db, add_backtrace=has_bt)
+    return 0
+
+
+def cmd_subtractdbs(argv) -> int:
+    """Remove records of result DB B from result DB A per query key
+    (reference: lib/mmseqs/src/util/subtractdbs.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch subtractdbs")
+    p.add_argument("result_db_left")
+    p.add_argument("result_db_right")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.resultdb import read_result_db, write_result_db
+    left, has_bt = read_result_db(args.result_db_left)
+    right, _ = read_result_db(args.result_db_right)
+    out = {}
+    for qkey, rs in left.items():
+        drop = {r.db_key for r in right.get(qkey, [])}
+        out[qkey] = [r for r in rs if r.db_key not in drop]
+    write_result_db(out, args.output_db, add_backtrace=has_bt)
+    return 0
+
+
+def cmd_createtsv(argv) -> int:
+    """Result DB -> 3-column TSV with entry names (reference:
+    lib/mmseqs/src/util/createtsv.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch createtsv")
+    p.add_argument("query_db")
+    p.add_argument("target_db")
+    p.add_argument("result_db")
+    p.add_argument("output_tsv")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .search.resultdb import read_result_db
+    from .search.results import result_to_line
+    qdb = load_db(args.query_db)
+    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    qname = {int(qdb.keys[i]): qdb.names[i] for i in range(qdb.size)}
+    tname = {int(tdb.keys[i]): tdb.names[i] for i in range(tdb.size)}
+    results, has_bt = read_result_db(args.result_db)
+    with open(args.output_tsv, "w") as f:
+        for qkey in sorted(results):
+            for r in results[qkey]:
+                line = result_to_line(r, has_bt).split("\t", 1)
+                f.write(f"{qname.get(qkey, qkey)}\t"
+                        f"{tname.get(r.db_key, r.db_key)}\t{line[1]}\n")
+    return 0
+
+
+def cmd_mergedbs(argv) -> int:
+    """Concatenate result DBs per query key, first DB's entries first
+    (reference: lib/mmseqs/src/util/mergedbs.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch mergedbs")
+    p.add_argument("result_dbs", nargs="+", help="two or more result DBs")
+    p.add_argument("output_db")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.resultdb import read_result_db, write_result_db
+    merged = {}
+    any_bt = False
+    for path in args.result_dbs:
+        results, has_bt = read_result_db(path)
+        any_bt = any_bt or has_bt
+        for qkey, rs in results.items():
+            merged.setdefault(int(qkey), []).extend(rs)
+    write_result_db(merged, args.output_db, add_backtrace=any_bt)
+    return 0
+
+
+# filterdb expression evaluation: the reference embeds tinyexpr
+# (lib/mmseqs/src/util/filterdb.cpp --filter-expression); here a small safe
+# arithmetic evaluator over $N column variables.
+_FILTER_OPS = {
+    "+": (1, lambda a, b: a + b), "-": (1, lambda a, b: a - b),
+    "*": (2, lambda a, b: a * b), "/": (2, lambda a, b: a / b if b else 0.0),
+    ">": (0, lambda a, b: float(a > b)), "<": (0, lambda a, b: float(a < b)),
+    ">=": (0, lambda a, b: float(a >= b)), "<=": (0, lambda a, b: float(a <= b)),
+    "==": (0, lambda a, b: float(a == b)), "!=": (0, lambda a, b: float(a != b)),
+}
+
+
+def _filter_eval(expr: str, cols):
+    import re as _re
+    toks = _re.findall(r"\$\d+|\d+\.?\d*(?:[eE][-+]?\d+)?|>=|<=|==|!=|[-+*/()<>]",
+                       expr)
+
+    def value(tok):
+        if tok.startswith("$"):
+            return float(cols[int(tok[1:]) - 1])
+        return float(tok)
+
+    # shunting-yard to RPN, then evaluate
+    out, ops = [], []
+    for t in toks:
+        if t in _FILTER_OPS:
+            while (ops and ops[-1] in _FILTER_OPS
+                   and _FILTER_OPS[ops[-1]][0] >= _FILTER_OPS[t][0]):
+                out.append(ops.pop())
+            ops.append(t)
+        elif t == "(":
+            ops.append(t)
+        elif t == ")":
+            while ops and ops[-1] != "(":
+                out.append(ops.pop())
+            if ops:
+                ops.pop()
+        else:
+            out.append(value(t))
+    while ops:
+        out.append(ops.pop())
+    st = []
+    for t in out:
+        if isinstance(t, float):
+            st.append(t)
+        else:
+            if len(st) < 2:  # malformed expression (e.g. unary minus)
+                raise ValueError(f"bad filter expression: {expr!r}")
+            b, a = st.pop(), st.pop()
+            st.append(_FILTER_OPS[t][1](a, b))
+    return st[0] if st else 0.0
+
+
+def cmd_filterdb(argv) -> int:
+    """Filter result-DB records by column (reference:
+    lib/mmseqs/src/util/filterdb.cpp): numeric comparator on a column, a
+    regex, or a tinyexpr-style --filter-expression over $N columns."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch filterdb")
+    p.add_argument("result_db")
+    p.add_argument("output_db")
+    p.add_argument("--filter-column", type=int, default=1,
+                   help="1-based column of the record (1=targetkey 2=score ...)")
+    p.add_argument("--comparison-operator", default="",
+                   choices=["", "ge", "le", "e"])
+    p.add_argument("--comparison-value", type=float, default=0.0)
+    p.add_argument("--filter-regex", default="")
+    p.add_argument("--filter-expression", default="",
+                   help="arithmetic over $N columns; keeps rows where != 0")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import re as _re
+
+    from .search.resultdb import read_result_db, write_result_db
+    from .search.results import result_to_line
+    results, has_bt = read_result_db(args.result_db)
+    out = {}
+    kept = total = 0
+    for qkey, rs in results.items():
+        keep = []
+        for r in rs:
+            cols = result_to_line(r, has_bt).split("\t")
+            total += 1
+            ok = True
+            if args.comparison_operator:
+                v = float(cols[args.filter_column - 1])
+                ok = {"ge": v >= args.comparison_value,
+                      "le": v <= args.comparison_value,
+                      "e": v == args.comparison_value}[args.comparison_operator]
+            if ok and args.filter_regex:
+                ok = _re.search(args.filter_regex,
+                                cols[args.filter_column - 1]) is not None
+            if ok and args.filter_expression:
+                ok = _filter_eval(args.filter_expression, cols) != 0.0
+            if ok:
+                keep.append(r)
+                kept += 1
+        out[qkey] = keep
+    write_result_db(out, args.output_db, add_backtrace=has_bt)
+    logger.info("filterdb: kept %d/%d records", kept, total)
+    return 0
+
+
+def cmd_result2flat(argv) -> int:
+    """Result DB -> flat FASTA-style text: per query a header line then one
+    '>header\\nsequence' block per hit (reference:
+    lib/mmseqs/src/util/result2flat.cpp; composed by easycluster.sh)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch result2flat")
+    p.add_argument("query_db")
+    p.add_argument("target_db")
+    p.add_argument("result_db")
+    p.add_argument("output")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .search.resultdb import read_result_db
+    qdb = load_db(args.query_db)
+    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    q_idx = qdb.key_to_index()
+    t_idx = tdb.key_to_index()
+    results, _ = read_result_db(args.result_db)
+    with open(args.output, "w") as f:
+        for qkey in sorted(results):
+            f.write(f">{qdb.headers[q_idx[qkey]]}\n")
+            for r in results[qkey]:
+                ti = t_idx[r.db_key]
+                f.write(f">{tdb.headers[ti]}\n{tdb.get_aa_str(ti)}\n")
+    return 0
+
+
+def cmd_result2repseq(argv) -> int:
+    """Top hit per query as a sequence FASTA (reference:
+    lib/mmseqs/src/util/result2repseq.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch result2repseq")
+    p.add_argument("sequence_db")
+    p.add_argument("result_db")
+    p.add_argument("output")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .search.resultdb import read_result_db
+    db = load_db(args.sequence_db)
+    idx = db.key_to_index()
+    results, _ = read_result_db(args.result_db)
+    with open(args.output, "w") as f:
+        for qkey in sorted(results):
+            rs = results[qkey]
+            rep = rs[0].db_key if rs else qkey
+            i = idx[rep]
+            f.write(f">{db.headers[i]}\n{db.get_aa_str(i)}\n")
+    return 0
+
+
+def cmd_createseqfiledb(argv) -> int:
+    """Per-cluster concatenated member sequences (reference:
+    lib/mmseqs/src/util/createseqfiledb.cpp; feeds result2flat for
+    all_seqs.fasta)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch createseqfiledb")
+    p.add_argument("sequence_db")
+    p.add_argument("cluster_tsv", help="rep\\tmember lines (names or keys)")
+    p.add_argument("output")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    db = load_db(args.sequence_db)
+    name_to_idx = {db.names[i]: i for i in range(db.size)}
+    key_to_idx = db.key_to_index()
+
+    def resolve(tok):
+        if tok in name_to_idx:
+            return name_to_idx[tok]
+        return key_to_idx[int(tok)]
+
+    clusters = {}
+    order = []
+    for line in open(args.cluster_tsv):
+        r, m = line.rstrip("\n").split("\t")[:2]
+        ri = resolve(r)
+        if ri not in clusters:
+            clusters[ri] = []
+            order.append(ri)
+        clusters[ri].append(resolve(m))
+    with open(args.output, "w") as f:
+        for ri in order:
+            for mi in clusters[ri]:
+                f.write(f">{db.headers[mi]}\n{db.get_aa_str(mi)}\n")
+            f.write("\0\n")  # record separator like the reference's db entries
+    return 0
+
+
+def cmd_result2stats(argv) -> int:
+    """Per-query statistic over result records (reference:
+    lib/mmseqs/src/util/result2stats.cpp --stat
+    linecount/mean/min/max/sum over a numeric column, or seqlen)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch result2stats")
+    p.add_argument("result_db")
+    p.add_argument("output_tsv")
+    p.add_argument("--stat", default="linecount",
+                   choices=["linecount", "mean", "min", "max", "sum"])
+    p.add_argument("--stat-column", type=int, default=2,
+                   help="1-based record column for mean/min/max/sum"
+                        " (2 = score)")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .search.resultdb import read_result_db
+    from .search.results import result_to_line
+    results, has_bt = read_result_db(args.result_db)
+    with open(args.output_tsv, "w") as f:
+        for qkey in sorted(results):
+            rs = results[qkey]
+            if args.stat == "linecount":
+                val = len(rs)
+            else:
+                vals = [float(result_to_line(r, has_bt)
+                              .split("\t")[args.stat_column - 1])
+                        for r in rs]
+                if not vals:
+                    val = 0
+                else:
+                    val = {"mean": sum(vals) / len(vals),
+                           "min": min(vals), "max": max(vals),
+                           "sum": sum(vals)}[args.stat]
+            f.write(f"{qkey}\t{val:g}\n" if isinstance(val, float)
+                    else f"{qkey}\t{val}\n")
+    return 0
+
+
+def cmd_summarizeheaders(argv) -> int:
+    """Per-cluster summary header: representative header + member count
+    + first N member headers (reference:
+    lib/mmseqs/src/util/summarizeheaders.cpp)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch summarizeheaders")
+    p.add_argument("query_db")
+    p.add_argument("target_db")
+    p.add_argument("result_db", help="cluster result DB (rep -> members)")
+    p.add_argument("output_tsv")
+    p.add_argument("--summary-prefix", default="cl")
+    p.add_argument("--headers-per-summary", type=int, default=5)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .search.resultdb import read_result_db
+    qdb = load_db(args.query_db)
+    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    thead = {int(tdb.keys[i]): tdb.headers[i] for i in range(tdb.size)}
+    qhead = {int(qdb.keys[i]): qdb.headers[i] for i in range(qdb.size)}
+    results, _ = read_result_db(args.result_db)
+    with open(args.output_tsv, "w") as f:
+        for qkey in sorted(results):
+            members = [thead.get(r.db_key, str(r.db_key))
+                       for r in results[qkey]]
+            picks = " | ".join(members[:args.headers_per_summary])
+            f.write(f"{qkey}\t{args.summary_prefix}|{qhead.get(qkey, qkey)}"
+                    f"|n={len(members)}|{picks}\n")
+    return 0
+
+
+def cmd_summarizeresult(argv) -> int:
+    """Per query keep highest-ranked alignments whose query interval is not
+    already covered more than --overlap by accepted ones
+    (reference: lib/mmseqs/src/util/summarizeresult.cpp:60-92)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch summarizeresult")
+    p.add_argument("result_db")
+    p.add_argument("output_db")
+    p.add_argument("--overlap", type=float, default=0.0)
+    p.add_argument("-c", "--cov", dest="cov_thr", type=float, default=0.0)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    import numpy as np
+
+    from .search.resultdb import read_result_db, write_result_db
+    results, has_bt = read_result_db(args.result_db)
+    out = {}
+    for qkey, rs in results.items():
+        kept = []
+        covered = None
+        for r in rs:
+            if covered is None:
+                covered = np.zeros(max(r.q_len, 1), dtype=bool)
+            lo, hi = sorted((r.q_start, r.q_end))
+            if hi > r.q_len:
+                continue
+            dbcov = (abs(r.t_end - r.t_start) + 1) / max(r.t_len, 1)
+            if dbcov < args.cov_thr:
+                continue
+            seg = covered[lo:hi]
+            pct = float(seg.sum()) / max(hi - lo + 1, 1)
+            if pct <= args.overlap:
+                covered[lo:hi] = True
+                kept.append(r)
+        out[qkey] = kept
+    write_result_db(out, args.output_db, add_backtrace=has_bt)
+    return 0
+
+
+def cmd_extractalignedregion(argv) -> int:
+    """Extract the aligned query (or target) region of every record as a
+    FASTA-style flat DB (reference:
+    lib/mmseqs/src/util/extractalignedregion.cpp --extract-mode)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch extractalignedregion")
+    p.add_argument("query_db")
+    p.add_argument("target_db")
+    p.add_argument("result_db")
+    p.add_argument("output")
+    p.add_argument("--extract-mode", type=int, default=2,
+                   help="1: query region, 2: target region (default)")
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    from .db.storage import load_db
+    from .search.resultdb import read_result_db
+    qdb = load_db(args.query_db)
+    tdb = qdb if args.target_db == args.query_db else load_db(args.target_db)
+    qidx, tidx = qdb.key_to_index(), tdb.key_to_index()
+    results, _ = read_result_db(args.result_db)
+    with open(args.output, "w") as f:
+        for qkey in sorted(results):
+            for r in results[qkey]:
+                if args.extract_mode == 1:
+                    i = qidx.get(int(qkey))
+                    if i is None:
+                        continue
+                    seq = qdb.get_aa_str(i)[r.q_start:r.q_end + 1]
+                    name = qdb.names[i]
+                else:
+                    i = tidx.get(int(r.db_key))
+                    if i is None:
+                        continue
+                    seq = tdb.get_aa_str(i)[r.t_start:r.t_end + 1]
+                    name = tdb.names[i]
+                f.write(f">{name} {qkey}:{r.db_key}\n{seq}\n")
+    return 0
+
+
+def cmd_apply(argv) -> int:
+    """Run a command per query block of a result DB; its stdout becomes the
+    block's new records (reference: lib/mmseqs/src/util/apply.cpp — the
+    program reads entry data on stdin, MMSEQS_ENTRY_NAME in env)."""
+    p = argparse.ArgumentParser(prog="foldseek_tpu_torch apply")
+    p.add_argument("result_db")
+    p.add_argument("output_db")
+    p.add_argument("program", nargs=argparse.REMAINDER)
+    p.add_argument("-v", "--verbosity", type=int, default=3)
+    args = p.parse_args(argv)
+    set_verbosity(args.verbosity)
+    if not args.program:
+        raise SystemExit("apply: need a program (-- cmd args...)")
+    prog = args.program[1:] if args.program[0] == "--" else args.program
+    import subprocess
+
+    from .search.resultdb import parse_result_line, read_result_db, write_result_db
+    from .search.results import result_to_line
+    results, has_bt = read_result_db(args.result_db)
+    raw_out: dict = {}
+    for qkey in sorted(results):
+        blob = "".join(f"{result_to_line(r, has_bt)}\n" for r in results[qkey])
+        env = dict(os.environ, MMSEQS_ENTRY_NAME=str(qkey))
+        proc = subprocess.run(prog, input=blob.encode(), env=env,
+                              capture_output=True)
+        if proc.returncode != 0:
+            raise SystemExit(
+                f"apply: {' '.join(prog)} failed on entry {qkey}: "
+                f"{proc.stderr.decode()[-500:]}")
+        raw_out[qkey] = [line for line in proc.stdout.decode().splitlines()
+                         if line.strip()]
+    # like the reference, the program's output is opaque entry data
+    # (lib/mmseqs/src/util/apply.cpp writes stdout verbatim). When every
+    # line still parses as an alignment record the output stays a typed
+    # alignment DB (usable by convertalis etc.); otherwise it is written
+    # as a flat qkey\t<line> TSV.
+    try:
+        out = {}
+        for qkey, lines in raw_out.items():
+            rs = []
+            for line in lines:
+                _, r = parse_result_line(f"{qkey}\t{line}")
+                rs.append(r)
+            out[qkey] = rs
+        write_result_db(out, args.output_db, add_backtrace=has_bt)
+    except (ValueError, IndexError):
+        with open(args.output_db, "w") as f:
+            for qkey in sorted(raw_out):
+                for line in raw_out[qkey]:
+                    f.write(f"{qkey}\t{line}\n")
+        logger.info("apply: output is not alignment-shaped; wrote flat TSV")
+    return 0
+
+
+# the version of foldseek_tpu whose verbs, flags and bytes the port follows
+VERSION = "0.1.0"
+
+
+def cmd_version(argv) -> int:
+    print(f"foldseek_tpu_torch {VERSION} (PyTorch/CUDA port of foldseek-tpu)")
+    return 0
+
+
 COMMANDS = {
     "createdb": (cmd_createdb, "Convert PDB/mmCIF files to a structure DB"),
     "databases": (cmd_databases, "List/download prebuilt structure databases"),
@@ -2088,6 +3357,50 @@ COMMANDS = {
     "msa2profile": (cmd_msa2profile, "MSA DB to a searchable profile DB"),
     "clusterupdate": (cmd_clusterupdate, "Incrementally update a clustering"),
     "warmup": (cmd_warmup, "Run one search a prefilter mode against a DB (builds and loads what a first search would)"),
+    "makepaddeddb": (cmd_createindex, "Alias of createindex (padded device layout)"),
+    "makepaddedseqdb": (cmd_createindex,
+                        "Alias of createindex (reference verb name, "
+                        "FoldseekBase.cpp:126)"),
+    "mmcreateindex": (cmd_createindex, "Alias of createindex (base-module name)"),
+    "convert2pdb": (cmd_convert2pdb, "Structure DB to C-alpha PDB file(s)"),
+    "structureto3didescriptor": (cmd_structureto3didescriptor, "Dump AA + 3Di strings per chain"),
+    "convert2foldcomp": (cmd_convert2foldcomp, "Compress structures into a foldcomp (.fcz) DB"),
+    "convert2fasta": (cmd_convert2fasta, "Sequence DB to FASTA"),
+    "createsubdb": (cmd_createsubdb, "Subset a structure DB by key/name list"),
+    "splitdb": (cmd_splitdb, "Split a DB into N contiguous sub-DBs"),
+    "concatdbs": (cmd_concatdbs, "Concatenate two structure DBs"),
+    "diffseqdbs": (cmd_diffseqdbs, "Diff two DB versions (removed/kept/new)"),
+    "mvdb": (cmd_mvdb, "Move/rename a DB"),
+    "rmdb": (cmd_rmdb, "Remove a DB"),
+    "lndb": (cmd_lndb, "Link a DB under a new path (no payload copy)"),
+    "aliasdb": (cmd_lndb, "Alias of lndb (base:aliasdb)"),
+    "renamedbkeys": (cmd_renamedbkeys, "Rename DB entry keys per mapping file"),
+    "setextendeddbtype": (cmd_setextendeddbtype, "Tag a DB with an extended dbtype flag"),
+    "appenddbtoindex": (cmd_appenddbtoindex, "Attach DBs to a createindex artifact"),
+    "compress": (cmd_compress, "zstd-compress a flat DB file"),
+    "decompress": (cmd_decompress, "Decompress a zstd DB file"),
+    "dbtype": (cmd_dbtype, "Print the DB type"),
+    "view": (cmd_view, "Print DB entries to stdout"),
+    "prefixid": (cmd_prefixid, "Prefix entry lines with key/name/string"),
+    "tsv2db": (cmd_tsv2db, "Flat TSV to a (result) DB"),
+    "tar2db": (cmd_tar2db, "Pack tar members into a keyed flat DB"),
+    "db2tar": (cmd_db2tar, "Export DB entries as PDB files in a tar archive"),
+    "unpackdb": (cmd_unpackdb, "Explode a DB into one file per entry"),
+    "sortresult": (cmd_sortresult, "Re-sort result records into canonical hit order"),
+    "subtractdbs": (cmd_subtractdbs, "Remove right DB's records from left result DB"),
+    "createtsv": (cmd_createtsv, "Result DB to TSV with entry names"),
+    "mergedbs": (cmd_mergedbs, "Concatenate result DBs per query"),
+    "filterdb": (cmd_filterdb, "Filter result records by column/regex/expression"),
+    "result2flat": (cmd_result2flat, "Result DB to flat FASTA-style text"),
+    "result2repseq": (cmd_result2repseq, "Top hit per query as sequence FASTA"),
+    "createseqfiledb": (cmd_createseqfiledb, "Per-cluster concatenated member sequences"),
+    "result2stats": (cmd_result2stats, "Per-query statistic over result records"),
+    "summarizeheaders": (cmd_summarizeheaders, "Per-cluster summary headers"),
+    "summarizeresult": (cmd_summarizeresult, "Keep non-overlapping top alignments per query"),
+    "extractalignedregion": (cmd_extractalignedregion,
+                             "Aligned query/target regions as FASTA"),
+    "apply": (cmd_apply, "Run a program per result entry (stdin/stdout)"),
+    "version": (cmd_version, "Show version"),
 }
 
 

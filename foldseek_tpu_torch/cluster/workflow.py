@@ -15,12 +15,12 @@ setStructuralClusterAutomagicParameters (StructureCluster.cpp:11-79):
 cov 0.8, e-value 0.01, no structure-bit sorting, no composition bias,
 sensitivity from --min-seq-id (8.0 at the 0.0 default), set-cover clustering.
 
-Copy of `foldseek_tpu/cluster/workflow.py` for one process: every align
-stage (the lin stage and each cascade step) is `align_all` on the torch
-device the caller names, so the SW kernel scores its pairs on a card. The
-query-sharded multi-process align branch is not ported (the world size is
-1; `torch.distributed` is ROADMAP queue 1, distribution), so the stage cache is
-always on when a tmp dir is given.
+Copy of `foldseek_tpu/cluster/workflow.py`: every align stage (the lin
+stage and each cascade step) runs on the torch device the caller names, so
+the SW kernel scores its pairs on a card. In a `torch.distributed` world of
+more than one rank the align stages are query-sharded with an all_gather
+merge (`parallel/distributed.py` `alignment_backend`) and the stage cache is
+off.
 """
 from __future__ import annotations
 
@@ -152,9 +152,20 @@ def cluster_db(db: StructDB, params: ClusterParams, device: torch.device,
     persisted under a param-hashed stage dir and a re-invoked run resumes
     after the last completed step (data/structurecluster.sh's notExists
     guards). The align stages run on `device`."""
+    from ..parallel.distributed import alignment_backend
     from ..search.stages import make_cache
     p = params
-    cache = make_cache(tmp_dir, params, db)
+    align_fn = alignment_backend(align_all)
+    if align_fn is not align_all:
+        # several ranks: heavy align stages are query-sharded with an
+        # all_gather merge (the $RUNNER prefix on structurecluster.sh's
+        # stages); stage-resume stays single-process-only, since concurrent
+        # ranks would race on one artifact dir (the reference uses
+        # rank-local tmp + master move for the same reason,
+        # Prefiltering.cpp:589-660)
+        cache = None
+    else:
+        cache = make_cache(tmp_dir, params, db)
 
     def _step_pairs(name, fn) -> List[Tuple[int, int]]:
         if cache is None:
@@ -212,8 +223,8 @@ def cluster_db(db: StructDB, params: ClusterParams, device: torch.device,
         # edges sitting at the E gate; only the cascade steps align subset
         # DBs (input_step_redundancy)
         with Timer("cluster lin align"):
-            aln = align_all(db, db, pref_filtered, replace(align_par), device,
-                            same_db=True)
+            aln = align_fn(db, db, pref_filtered, replace(align_par), device,
+                           same_db=True)
         sub = _subdb_view(db, reps)
         with Timer("cluster clust lin"):
             return run_clust([int(k) for k in sub.keys], sub.lengths(),
@@ -258,8 +269,8 @@ def cluster_db(db: StructDB, params: ClusterParams, device: torch.device,
                     pref_step = kmer_prefilter(
                         sdb, sdb, spar, min_diag_score=0 if step == 0 else 15)
                 with Timer(f"cluster step{step} align"):
-                    aln_step = align_all(sdb, sdb, pref_step, spar, device,
-                                         same_db=True)
+                    aln_step = align_fn(sdb, sdb, pref_step, spar, device,
+                                        same_db=True)
                 with Timer(f"cluster step{step} clust"):
                     return run_clust([int(k) for k in sdb.keys],
                                      sdb.lengths(),

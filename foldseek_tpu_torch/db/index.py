@@ -10,16 +10,20 @@ padded byte sequences, the index stores
     (kmer ids + offsets + (seq, pos) entries)
 Both load with mmap so a long-lived index server can share pages across
 processes. Copy of `foldseek_tpu/db/index.py` with the imports rewritten
-and one check added: `load_index` accepts an index only when it describes
-the DB it is asked for (`describes`), so a key-subset view that keeps its
+and two repairs: `load_index` accepts an index only when it describes the
+DB it is asked for (`describes`), so a key-subset view that keeps its
 parent's path (`cluster/workflow.py` `_subdb_view`) builds its own postings
-and panels. The k-mer prefilter reads the posting lists from it
-(`search/kmer.py`), `TorchPanelSet` its bucket panels (`db/panels.py`).
+and panels; and `create_index` removes an existing index before it builds,
+so a second `createindex` neither reads the postings it is rewriting nor
+writes through the links `lndb` made. The k-mer prefilter reads the posting
+lists from it (`search/kmer.py`), `TorchPanelSet` its bucket panels
+(`db/panels.py`).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Dict, Optional
 
 import numpy as np
@@ -41,7 +45,11 @@ def create_index(db: StructDB, k: int = 0, sensitivity: float = 9.5,
     GPU kernels, lib/mmseqs/src/util/makepaddedseqdb.cpp; libmarv
     dbbatching.cuh partitions by length)."""
     out = index_dir(db.path)
-    os.makedirs(out, exist_ok=True)
+    # rebuild from the DB alone: the k-mer prefilter below would otherwise
+    # read the old postings while their files are rewritten, and a linked
+    # copy's files are its source's too
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
 
     # --- length-bucketed transposed panels for the gapless kernel ---
     from .panels import build_buckets

@@ -6,10 +6,10 @@ Stages: chain-level search (default params, no backtrace) -> expandmultimer
 (all chain pairs of hit complexes) -> structurealign with the relaxed
 expansion e-value (1e4) and backtraces -> scoremultimer -> report/m8.
 
-Copy of `foldseek_tpu/multimer/workflow.py` for one process: the chain
-search and the expand re-align run on the torch device the caller names.
-The query-sharded multi-process branch is not ported (the world size is 1;
-`torch.distributed` is ROADMAP queue 1, distribution).
+Copy of `foldseek_tpu/multimer/workflow.py`: the chain search and the
+expand re-align run on the torch device the caller names. In a
+`torch.distributed` world of more than one rank both are query-sharded with
+an all_gather merge (`parallel/distributed.py`) and the stage cache is off.
 """
 from __future__ import annotations
 
@@ -38,9 +38,18 @@ def multimer_search(qdb: StructDB, tdb: StructDB,
     """Full multimer pipeline; returns scorecomplex result lines per query
     chain key. With a tmp_dir the chain search and the expanded re-align
     resume from stage artifacts (data/multimersearch.sh notExists guards)."""
+    from ..parallel.distributed import alignment_backend
     from ..search.stages import make_cache
     same_db = qdb.path == tdb.path
-    cache = make_cache(tmp_dir, replace(params, add_backtrace=True), qdb, tdb)
+    align_fn = alignment_backend(align_all)
+    if align_fn is not align_all:
+        # several ranks: the chain search + expanded re-align shard by
+        # query with an all_gather merge ($RUNNER on multimersearch.sh's
+        # stages); stage-resume is single-process-only (rank races)
+        cache = None
+    else:
+        cache = make_cache(tmp_dir, replace(params, add_backtrace=True),
+                           qdb, tdb)
     if params.exhaustive_search:
         # EXHAUSTIVE prefmode skips expansion; search carries backtraces
         spar = replace(params, add_backtrace=True)
@@ -71,8 +80,8 @@ def multimer_search(qdb: StructDB, tdb: StructDB,
                            evalue_thr=EVALUE_THR_EXPAND_MULTIMER,
                            comp_bias_correction_scale=1.0)
             with Timer("structurealign expand"):
-                return align_all(qdb, tdb, expanded, apar, device,
-                                 same_db=same_db)
+                return align_fn(qdb, tdb, expanded, apar, device,
+                                same_db=same_db)
         alns = (cache.run_aln("aln_expand", run_expand_align)
                 if cache is not None else run_expand_align())
     with Timer("scoremultimer"):

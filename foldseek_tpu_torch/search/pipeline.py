@@ -2,10 +2,12 @@
 graph (reference: data/structuresearch.sh, data/easystructuresearch.sh,
 src/workflow/StructureSearch.cpp).
 
-Port of `foldseek_tpu/search/pipeline.py` for one process: with a tmp dir,
-the prefilter and align stages persist their artifacts through
-`search/stages.py` and a re-invoked run resumes from them. Every
-entry point takes the torch device the stages run on.
+Port of `foldseek_tpu/search/pipeline.py`: with a tmp dir, the prefilter
+and align stages persist their artifacts through `search/stages.py` and a
+re-invoked run resumes from them. Every entry point takes the torch device
+the stages run on. In a `torch.distributed` world of more than one rank
+(`parallel/distributed.py`) every align stage is sharded by query with an
+all_gather merge and the stage cache is off.
 """
 from __future__ import annotations
 
@@ -42,9 +44,13 @@ def ensure_db(path_or_input: str, tmp_dir: str, tag: str) -> StructDB:
 def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
            device: torch.device, same_db: Optional[bool] = None,
            tmp_dir: Optional[str] = None) -> Dict[int, List[AlnResult]]:
+    from ..parallel.distributed import world
     if same_db is None:
         same_db = qdb.path == tdb.path
-    cache = make_cache(tmp_dir, params, qdb, tdb)
+    # stage-resume is single-process-only: concurrent ranks would race on
+    # one artifact dir (the reference uses rank-local tmp + a master move,
+    # Prefiltering.cpp:589-660)
+    cache = make_cache(tmp_dir, params, qdb, tdb) if world()[1] == 1 else None
     if params.cluster_search:
         # search representatives, expand hits to cluster members, re-align
         # against the full _seq DB (data/structuresearch.sh:125-140)
@@ -85,16 +91,32 @@ def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
 def _align_stage(qdb: StructDB, tdb: StructDB, pref: Dict[int, List[int]],
                  params: SearchParams, device: torch.device, same_db: bool,
                  cache=None) -> Dict[int, List[AlnResult]]:
+    # in a world of several ranks every align stage is query-sharded with
+    # an all_gather merge (the $RUNNER prefix the reference puts on each
+    # heavy stage, data/structuresearch.sh:46-53); a world of one rank runs
+    # the plain in-process stage
+    from ..parallel.distributed import sharded_align_all, world
+    sharded = world()[1] > 1
+
+    def stage(stage_fn):
+        if sharded:
+            return sharded_align_all(qdb, tdb, pref, params, device,
+                                     same_db=same_db, stage_fn=stage_fn)
+        return stage_fn(qdb, tdb, pref, params, same_db=same_db)
+
     def run():
         if params.alignment_type == 1:  # TM-align (StructureSearch.cpp:128-135)
             from .tmalign_stage import tmalign_all
             with Timer("tmalign"):
-                return tmalign_all(qdb, tdb, pref, params, same_db=same_db)
+                return stage(tmalign_all)
         if params.alignment_type == 3:  # LoLalign
             from .lolalign_stage import lolalign_all
             with Timer("lolalign"):
-                return lolalign_all(qdb, tdb, pref, params, same_db=same_db)
+                return stage(lolalign_all)
         with Timer("structurealign"):
+            if sharded:
+                return sharded_align_all(qdb, tdb, pref, params, device,
+                                         same_db=same_db)
             return align_all(qdb, tdb, pref, params, device, same_db=same_db)
     if cache is not None:
         # backtraces are always persisted: a resumed run must reproduce the

@@ -133,6 +133,28 @@ class UngappedPrefilter:
             profs, [abs(min(int(p.min()), 0)) for p in profs], params)
 
     def _run_batch(self, profs, byte_biases, params: SearchParams):
+        out = []
+        for g, (s, idx) in enumerate(self.scan(profs, byte_biases,
+                                               params.max_seqs)):
+            ok = s > MIN_DIAG_SCORE
+            if params.cov_thr > 0.0:
+                # Util::canBeCovered length pre-gate
+                # (ungappedprefilter.cpp:403 applies it per target before
+                # scoring; host-side masking before the final top-k keeps
+                # the same surviving set)
+                qlen = profs[g].shape[1]
+                ok &= can_be_covered_mask(params.cov_thr, params.cov_mode,
+                                          qlen, self.tlens[idx])
+            s, idx = s[ok], idx[ok]
+            order = np.lexsort((self.keys[idx], -s))[: params.max_seqs]
+            out.append([(int(self.keys[idx[i]]), int(s[i])) for i in order])
+        return out
+
+    def scan(self, profs, byte_biases, max_seqs: int):
+        """Every query's ungapped candidates before any gate: (int64 scores,
+        int64 DB entry indices) per query, all targets where a piece brings
+        its full score rows home and each piece's `max_seqs` best where it
+        takes the device top-k."""
         stacks = make_profile_stacks(profs, byte_biases, self.device)
         nq = len(profs)
         cand_scores = [[] for _ in range(nq)]
@@ -151,11 +173,11 @@ class UngappedPrefilter:
                 entry_idx = bucket.entry_idx[
                     piece.row_start: piece.row_start + n_real]
                 use_topk = self.keys_monotonic and rows >= max(
-                    DEVICE_TOPK_MIN_ROWS, 2 * params.max_seqs)
+                    DEVICE_TOPK_MIN_ROWS, 2 * max_seqs)
                 for grp, prof, q_off, caps in stacks:
                     if use_topk:
                         s, r = gapless_topk_batch(prof, q_off, caps, t_dev,
-                                                  min(rows, params.max_seqs))
+                                                  min(rows, max_seqs))
                         pending.append((grp, n_real, entry_idx, s,
                                         r.to(torch.int32)))
                     else:
@@ -189,27 +211,10 @@ class UngappedPrefilter:
                         cand_scores[g].append(s[r][ok])
                         cand_idx[g].append(entry_idx[ti[r][ok]])
 
-        out = []
-        for g in range(nq):
-            if cand_scores[g]:
-                s = np.concatenate(cand_scores[g]).astype(np.int64)
-                idx = np.concatenate(cand_idx[g])
-            else:
-                s = np.zeros(0, dtype=np.int64)
-                idx = np.zeros(0, dtype=np.int64)
-            ok = s > MIN_DIAG_SCORE
-            if params.cov_thr > 0.0:
-                # Util::canBeCovered length pre-gate
-                # (ungappedprefilter.cpp:403 applies it per target before
-                # scoring; host-side masking before the final top-k keeps
-                # the same surviving set)
-                qlen = profs[g].shape[1]
-                ok &= can_be_covered_mask(params.cov_thr, params.cov_mode,
-                                          qlen, self.tlens[idx])
-            s, idx = s[ok], idx[ok]
-            order = np.lexsort((self.keys[idx], -s))[: params.max_seqs]
-            out.append([(int(self.keys[idx[i]]), int(s[i])) for i in order])
-        return out
+        empty = np.zeros(0, dtype=np.int64)
+        return [(np.concatenate(cand_scores[g]).astype(np.int64),
+                 np.concatenate(cand_idx[g]).astype(np.int64))
+                if cand_scores[g] else (empty, empty) for g in range(nq)]
 
 
 def resident_prefilter(tdb: StructDB, device: torch.device) -> UngappedPrefilter:

@@ -792,3 +792,84 @@ def test_msa2profile_search_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         assert all(a > b for a, b in zip(after, before)) == (dev == "cuda")
         out[dev] = open(res, "rb").read()
     assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 100
+
+
+# --- distribution: ranks of the port's worker on the card ---------------------
+
+def _spawn_ranks(tmp_path, size, args, backend):
+    """`size` ranks of `python -m foldseek_tpu_torch.parallel.worker` on
+    cuda:0 with `backend`, meeting in a file store; their JSON outputs."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = str(pathlib.Path(__file__).parents[1])
+    env = dict(os.environ, OMP_NUM_THREADS="2", FOLDSEEK_TPU_FORK="0",
+               FOLDSEEK_TPU_DEVICE_GATES="0",
+               PYTHONPATH=os.pathsep.join([repo, os.environ.get(
+                   "PYTHONPATH", "")]))
+    out = str(tmp_path / f"ranks_{backend}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "foldseek_tpu_torch.parallel.worker", out,
+         *args, "--init-method", f"file://{tmp_path}/store_{backend}",
+         "--world-size", str(size), "--rank", str(r), "--device", "cuda:0",
+         "--backend", backend, "--timeout", "120"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(size)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err.decode()[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r in range(size):
+        with open(f"{out}.{r}.json") as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def test_distributed_prefilter_nccl_one_rank_on_card(cuda, tmp_path):
+    """A 1-rank NCCL world gathers its candidates on the card and gives the
+    lists of `UngappedPrefilter` on cuda; the gapless kernel launched."""
+    from foldseek_tpu_torch.search import SearchParams
+    from foldseek_tpu_torch.search import ungapped as tung
+    tdb, qdb = _fixture_dbs(tmp_path, 1500, 4)
+    (rank,) = _spawn_ranks(tmp_path, 1, ["--queries", qdb.path, "--targets",
+                                         tdb.path, "--skip-search"], "nccl")
+    want = tung.UngappedPrefilter(tdb, cuda).query_batch(
+        [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)], SearchParams())
+    got = rank["paths"]["prefilter_0"]
+    assert got["result"] == [[list(h) for h in q] for q in want]
+    assert got["launches"]["gapless"] > 0 and rank["device"] == "cuda:0"
+
+
+def test_distributed_two_ranks_gloo_on_card(cuda, tmp_path, monkeypatch):
+    """Two gloo ranks sharing cuda:0: the sharded prefilter's lists, the long
+    query's and distributed_search's m8 equal the single process on cuda
+    (host gates), and each rank launched the gapless and the SW kernel."""
+    from foldseek_tpu_torch.search import SearchParams, format_results, search
+    from foldseek_tpu_torch.search import ungapped as tung
+    monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
+    tdb, qdb = _fixture_dbs(tmp_path, 1500, 4)
+    ranks = _spawn_ranks(tmp_path, 2, ["--queries", qdb.path, "--targets",
+                                       tdb.path, "--max-seqs", "300"], "gloo")
+    seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
+    single = tung.UngappedPrefilter(tdb, cuda)
+    params = SearchParams(max_seqs=300)
+    want_pref = [[list(h) for h in q]
+                 for q in single.query_batch(seqs, params)]
+    want_long = [list(h) for h in single.query(np.concatenate(seqs), params)]
+    sparams = SearchParams(prefilter_mode=1, add_backtrace=True, max_seqs=300)
+    res = search(qdb, tdb, sparams, cuda, same_db=False)
+    want_m8 = "".join(line + "\n" for line in format_results(
+        qdb, tdb, res, sparams.format_output, with_backtrace=True))
+    for rank in ranks:
+        paths = rank["paths"]
+        assert paths["prefilter_0"]["result"] == want_pref
+        assert paths["long"]["result"] == want_long
+        assert paths["search"]["result"] == want_m8 and want_m8
+        assert paths["search"]["launches"]["gapless"] > 0
+        assert paths["search"]["launches"]["sw"] > 0

@@ -6,6 +6,7 @@ The two packages meet only through files and plain values: a DB directory
 written by one side is loaded by each side's own `load_db`, and each side
 gets its own `SearchParams`."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -387,6 +388,27 @@ def test_easy_search_cli_mode3_matches_jax(golden_dir, tmp_path):
     assert len(want) > 5 and got == (tmp_path / "jax.m8").read_text()
 
 
+def test_easy_search_profile_dir_writes_trace(golden_dir, tmp_path,
+                                              monkeypatch):
+    """`easy-search --profile-dir D` writes a torch.profiler Chrome trace
+    into D and the m8 of the same run without the flag."""
+    from foldseek_tpu_torch.cli import main as tmain
+    monkeypatch.setenv("FOLDSEEK_TPU_FORK", "0")
+    inputs = _fixture_inputs(golden_dir)
+    m8 = []
+    for name, extra in (("plain", []),
+                        ("traced", ["--profile-dir", str(tmp_path / "prof")])):
+        out = tmp_path / f"{name}.m8"
+        assert tmain(["easy-search", inputs[0], inputs[1], str(out),
+                      str(tmp_path / f"tmp_{name}"), "--gpu", "1",
+                      "--device", "cpu", "-v", "1", *extra]) == 0
+        m8.append(out.read_text())
+    assert m8[0] and m8[0] == m8[1]
+    trace = tmp_path / "prof" / "easy_search_trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+
+
 def test_search_cli_writes_result_db(dbs, tmp_path):
     tdb, qdb = dbs[1].tdb, dbs[1].qdb
     proc = _run_port_cli(["search", qdb.path, tdb.path, str(tmp_path / "res"),
@@ -428,19 +450,24 @@ def _port_sources():
 
 
 def test_port_sources_import_neither_package():
-    """No file of the port, and not chip_smoke.py, holds an import of
-    foldseek_tpu or jax, at top level or inside a function."""
+    """No file of the port (parallel/ included), and not chip_smoke.py,
+    holds an import of foldseek_tpu or jax, at top level or inside a
+    function."""
     files = _port_sources()
     assert len(files) > 40
+    parallel = os.path.join(REPO, "foldseek_tpu_torch", "parallel")
+    assert {os.path.join(parallel, f"{m}.py")
+            for m in ("distributed", "mesh", "worker")} <= set(files)
     for path in files:
         assert not {"foldseek_tpu", "jax", "jaxlib"} & _imported_roots(path), path
 
 
 def test_port_never_imports_jax(golden_dir, tmp_path):
-    """Importing every module of the port, then through its CLI on the CPU
-    an easy-search, createdb, createindex, an indexserver round trip (a
-    served search) and convertalis, leaves neither jax nor any foldseek_tpu
-    module in sys.modules."""
+    """Importing every module of the port (parallel/ included), then through
+    its CLI on the CPU an easy-search, createdb, createindex, an indexserver
+    round trip (a served search) and convertalis, and a distributed search
+    in a world of one rank, leaves neither jax nor any foldseek_tpu module
+    in sys.modules."""
     inputs = _fixture_inputs(golden_dir)
     sock_dir = tempfile.mkdtemp(prefix="fs")
     if len(sock_dir) > 90:
@@ -469,6 +496,14 @@ def test_port_never_imports_jax(golden_dir, tmp_path):
             f"c = IndexServerClient({sock!r}); c.shutdown(); c.close(); t.join()\n"
             f"rc.append(main(['convertalis', {db!r}, {db!r}, {db + '_res'!r}, "
             f"{str(tmp_path / 'res.m8')!r}, '-v', '1']))\n"
+            "from foldseek_tpu_torch.db import load_db\n"
+            "from foldseek_tpu_torch.parallel.distributed import "
+            "distributed_search\n"
+            "from foldseek_tpu_torch.search import SearchParams\n"
+            f"d = load_db({db!r})\n"
+            "res = distributed_search(d, d, SearchParams(prefilter_mode=1), "
+            "'cpu')\n"
+            "rc.append(int(not all(res.values())))\n"
             "bad = sorted(k for k in sys.modules if k in ('jax', 'foldseek_tpu')"
             " or k.startswith(('jax.', 'foldseek_tpu.')))\n"
             "print(len(names), sum(rc), bad)\n")
@@ -481,9 +516,17 @@ def test_port_never_imports_jax(golden_dir, tmp_path):
         shutil.rmtree(sock_dir, ignore_errors=True)
     assert proc.returncode == 0, proc.stderr
     n, rc, bad = proc.stdout.strip().split(" ", 2)
-    assert int(n) >= 35 and rc == "0" and bad == "[]"
+    assert int(n) >= 38 and rc == "0" and bad == "[]"
     assert (tmp_path / "o.m8").read_text().count("\n") >= 1
     assert (tmp_path / "res.m8").read_text().count("\n") >= 17
+
+
+def test_commands_match_jax():
+    """The port registers every verb of foldseek_tpu's command line and no
+    other."""
+    from foldseek_tpu.cli import COMMANDS as jax_commands
+    from foldseek_tpu_torch.cli import COMMANDS
+    assert sorted(COMMANDS) == sorted(jax_commands) and len(COMMANDS) == 96
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -450,4 +450,4 @@ def test_base_prefix_dispatches_like_jax(work, lin, tmp_path):
     _both("base:swapdb", str(tmp_path / "sw"),
           [work["q3"], work["t60"], work["aln"], "{out}"])
     assert tmain(["base:nosuchverb"]) == 1 and jmain(["base:nosuchverb"]) == 1
-    assert len(COMMANDS) == 55
+    assert len(COMMANDS) == 96
