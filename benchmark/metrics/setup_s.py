@@ -1,0 +1,5 @@
+"""Seconds from process start to the first timed call (host clock)."""
+
+
+def read(ctx):
+    return ctx["setup_s"]

@@ -1,0 +1,13 @@
+"""Tests of the benchmark harness, run on their own (they are outside
+`tests/`): python -m pytest benchmark/tests -q. Card tests carry the `cuda`
+marker and skip without a card."""
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
