@@ -591,9 +591,7 @@ def phase_call_shapes(card, dev, tdb, qdb, pieces, panels, report):
                  [shared] * len(profs), panels, dev)
 
     # the drive: every call shape once, launches counted
-    tg.gapless_scores_batch.launches = 0
-    tg.gapless_scores_dual.launches = 0
-    sw_scores_pairs.launches = 0
+    before = launch_counts()
     k5 = [(f"one query, {name}, x bucket lt={b.lt_pad} ({t.shape[1]} rows)",
            (*prefilter_stack(seqs[:1], dev, capped), t), r)
           for b, t, r in pieces for name, capped in (("capped", True),
@@ -608,9 +606,7 @@ def phase_call_shapes(card, dev, tdb, qdb, pieces, panels, report):
         tg.gapless_scores_dual(aa, ss, q_off, t_aa, t_ss)
     sw_scores_pairs(*k7)
     torch.cuda.synchronize()
-    launches = dict(gapless=tg.gapless_scores_batch.launches,
-                    gapless_dual=tg.gapless_scores_dual.launches,
-                    sw=sw_scores_pairs.launches)
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
     if not all(launches.values()):
         raise AssertionError(f"a call shape did not launch: {launches}")
 
@@ -710,46 +706,47 @@ def check_lines(lines, qdb, every_query: bool = True, min_bits: int = 0):
         raise AssertionError(f"{qdb.size - len(seen)} queries without hits")
 
 
-STAGES = ("prefilter", "ungapped+gapped_prefilter", "sw_scoring", "host_loop",
-          "gates_drain", "batch_recover", "tmalign", "lolalign")
+# the search path's spans (utils/log.py): stages, their parts, and the
+# align pool's thread-CPU parts
+STAGES = ("prefilter", "prefilter.profiles", "prefilter.launches",
+          "prefilter.readback", "prefilter.merge", "ungapped+gapped_prefilter",
+          "structurealign", "align.setup", "sw_scoring", "host_loop",
+          "gates.dispatch", "gates_drain", "align.query_cpu",
+          "align.backtraces_cpu", "align.hits_cpu", "align.gates_cpu",
+          "mode3.evalues", "mode3.order", "mode3.records", "format",
+          "format.setup", "format.lines", "tmalign", "lolalign")
+
+
+def launch_counts() -> dict:
+    """The kernels' launches since the stage registry's last reset."""
+    from foldseek_tpu_torch.utils.log import stage_count
+    return {k: stage_count("launches." + k)
+            for k in ("gapless", "gapless_dual", "sw")}
 
 
 def reset_counts(dev) -> None:
     """Every launch count, the stage times and the peak memory to 0."""
     import torch
 
-    from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
-                                                gapless_scores_dual)
-    from foldseek_tpu_torch.ops.gates_device import GateFleet
-    from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
     from foldseek_tpu_torch.search import reset_stage_times
     reset_stage_times()
     torch.cuda.reset_peak_memory_stats(dev)
-    gapless_scores_batch.launches = 0
-    gapless_scores_dual.launches = 0
-    sw_scores_pairs.launches = 0
-    GateFleet.dispatches = 0
 
 
 def read_counts(dev, stage_names, stage_prefix: str = "") -> dict:
     """The launch counts, gate fleets, the stages named (or starting with
-    `stage_prefix`), the per-call counts (the pairs of each `align_all`
-    call, the entries of each device panel set made) and the peak memory
-    since reset_counts."""
+    `stage_prefix`), the per-call counts (the pairs, tracebacks and records
+    of each `align_all` call, the entries of each device panel set made)
+    and the peak memory since reset_counts."""
     import torch
 
-    from foldseek_tpu_torch.ops.gapless import (gapless_scores_batch,
-                                                gapless_scores_dual)
-    from foldseek_tpu_torch.ops.gates_device import GateFleet
-    from foldseek_tpu_torch.ops.sw_kernels import sw_scores_pairs
     from foldseek_tpu_torch.search import (snapshot_stage_counts,
                                            snapshot_stage_times)
+    from foldseek_tpu_torch.utils.log import stage_count
     stages = snapshot_stage_times()
     return dict(counts=snapshot_stage_counts(),
-        launches=dict(gapless=gapless_scores_batch.launches,
-                      gapless_dual=gapless_scores_dual.launches,
-                      sw=sw_scores_pairs.launches),
-        gate_fleets=GateFleet.dispatches,
+        launches=launch_counts(),
+        gate_fleets=stage_count("gate_fleets"),
         stages={k: v for k, v in stages.items() if k in stage_names
                 or (stage_prefix and k.startswith(stage_prefix))},
         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
@@ -1187,7 +1184,7 @@ def phase_mode3_kernel(card, dev, tdb, qdb, panels, report):
 # --- the workflows of slice 5: easy-cluster, cluster-search, rbh, multimer -----
 
 WORKFLOW_STAGES = ("prefilter", "sw_scoring", "host_loop", "gates_drain",
-                   "batch_recover", "search", "expand", "expandmultimer",
+                   "align.backtraces_cpu", "search", "expand", "expandmultimer",
                    "structurealign_expand", "scoremultimer")
 
 
@@ -1199,8 +1196,10 @@ def device_busy_ms(prof):
     thousands of launches); None when it saw no device time."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
+    # the program's "fs." ranges are mirrored onto the device's track: no
+    # device work
     ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == cuda)
+             if e.device_type() == cuda and not e.name().startswith("fs."))
     return ns / 1e6 or None
 
 
@@ -2443,7 +2442,7 @@ def device_ms_by_kind(prof, top: int = 12) -> dict:
     out = dict(gemm=0.0, copy=0.0, other=0.0, kernels=0)
     by_name = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != cuda:
+        if e.device_type() != cuda or e.name().startswith("fs."):
             continue
         name = e.name()
         low = name.lower()

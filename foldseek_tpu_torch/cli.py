@@ -36,8 +36,8 @@ Flags, defaults and output bytes are those of `foldseek_tpu`'s verbs;
 CUDA kernels, the default) or `cpu` (their plain PyTorch versions); createdb
 takes it for ProstT5; the other verbs that only read and write files take
 no `--device`. `easy-search --profile-dir D` writes a torch.profiler trace
-of the run into D. `version` prints foldseek_tpu's version number with the
-port's own description.
+of the run, with the program's "fs.<stage>" ranges, into D. `version`
+prints foldseek_tpu's version number with the port's own description.
 """
 from __future__ import annotations
 
@@ -543,11 +543,21 @@ def cmd_easy_search(argv) -> int:
     if args.profile_dir:
         # host + device trace for perf work (SURVEY 5: the reference only
         # has per-stage wallclock)
+        import torch
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        kw = {}
+        try:
+            # every thread, so that the align pool's "fs.align.*" ranges
+            # are in the trace too, where this torch can
+            kw["experimental_config"] = \
+                torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True)
+        except (AttributeError, TypeError):
+            pass
+        with profile(activities=activities, **kw) as prof:
             easy_search(args.query, args.target, args.output, args.tmp_dir,
                         params, device)
         os.makedirs(args.profile_dir, exist_ok=True)

@@ -227,8 +227,8 @@ def create_db_prostt5(inputs: List[str], out_path: str,
     on `device`."""
     from ..device import get_device
     from ..nn.prostt5 import ProstT5
-    from ..utils.log import StageTimer
-    with StageTimer("prostt5_load"):
+    from ..utils.log import span
+    with span("prostt5_load"):
         model = ProstT5(model_file=model_file,
                         device=get_device(str(device)))
     entries = []

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import math
 import struct
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -37,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.log import logger, record_count, record_stage
+from ..utils.log import logger, record_count, span
 
 THREE_DI = "ACDEFGHIKLMNPQRSTVWY"  # number_to_char (ProstT5.cpp:8-32)
 
@@ -433,11 +432,17 @@ class ProstT5:
         out[:len(toks)] = toks
         return out
 
-    def batch(self, seqs: List[str]):
-        """(tokens, mask) of one batch on the model's device, padded to the
-        next power of two of at least 16 tokens."""
+    @staticmethod
+    def pad_length(seqs: List[str]) -> int:
+        """The tokens of a batch: its longest sequence's with the prefix and
+        the end token, up to the next power of two of at least 16."""
         max_t = max(len(s) for s in seqs) + 2
-        pad_to = max(16, 1 << (max_t - 1).bit_length())
+        return max(16, 1 << (max_t - 1).bit_length())
+
+    def batch(self, seqs: List[str]):
+        """(tokens, mask) of one batch on the model's device, padded to
+        `pad_length` tokens."""
+        pad_to = self.pad_length(seqs)
         toks = np.stack([self.tokenize(s, pad_to) for s in seqs])
         mask = np.zeros_like(toks, dtype=bool)
         for row, s in enumerate(seqs):
@@ -454,12 +459,13 @@ class ProstT5:
         order = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))
         for start in range(0, len(order), batch_size):
             idx = order[start:start + batch_size]
-            t0 = time.perf_counter()
-            tokens, mask = self.batch([seqs[i] for i in idx])
-            logits = self.encoder(tokens, mask)
-            states = logits[:, :, :self.cfg.n_states].cpu().numpy().argmax(-1)
-            label = f"prostt5_T{tokens.shape[1]}"
-            record_stage(label, time.perf_counter() - t0)
+            batch = [seqs[i] for i in idx]
+            label = f"prostt5_T{self.pad_length(batch)}"
+            with span(label):
+                tokens, mask = self.batch(batch)
+                logits = self.encoder(tokens, mask)
+                states = (logits[:, :, :self.cfg.n_states].cpu().numpy()
+                          .argmax(-1))
             record_count(label + "_rows", len(idx))
             record_count(label + "_tokens", sum(len(seqs[i]) + 2 for i in idx))
             if self.device.type == "cuda":

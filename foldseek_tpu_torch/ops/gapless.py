@@ -44,6 +44,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.log import add_count
+
 PAD_LETTER = 21
 PROF_LANES = 32
 # pad-lane score: resets h to 0 (h + NEG < 0 for any h <= cap) and cannot
@@ -242,7 +244,7 @@ def gapless_scores_batch(prof: torch.Tensor, q_off: torch.Tensor,
     target of the panel t_T (int8 [Lt, B]). Returns int32 [q, B].
 
     Every launch of the gapless kernel goes through this function and adds
-    one to `gapless_scores_batch.launches`."""
+    one to the count `launches.gapless` (utils/log.py)."""
     dev = t_T.device
     if dev.type == "cpu":
         return gapless_scores_batch_torch(prof, q_off, caps, t_T)
@@ -276,11 +278,8 @@ def gapless_scores_batch(prof: torch.Tensor, q_off: torch.Tensor,
             scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gapless kernel launch failed: CUDA error {rc}")
-    gapless_scores_batch.launches += 1
+    add_count("launches.gapless")
     return out
-
-
-gapless_scores_batch.launches = 0
 
 
 def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
@@ -291,7 +290,7 @@ def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
     (int8 [Lt, B] each, pad letter 21 in both). Returns int32 [q, B].
 
     Every launch of the dual gapless kernel goes through this function and
-    adds one to `gapless_scores_dual.launches`."""
+    adds one to the count `launches.gapless_dual` (utils/log.py)."""
     dev = t_aa_T.device
     if dev.type == "cpu":
         return gapless_scores_dual_torch(prof_aa, prof_ss, q_off, t_aa_T,
@@ -331,11 +330,8 @@ def gapless_scores_dual(prof_aa: torch.Tensor, prof_ss: torch.Tensor,
             t_len.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dual gapless kernel launch failed: CUDA error {rc}")
-    gapless_scores_dual.launches += 1
+    add_count("launches.gapless_dual")
     return out
-
-
-gapless_scores_dual.launches = 0
 
 
 def topk_rows(scores: torch.Tensor, k: int):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.log import add_count
 from .lddt import lddt_chunk, lddt_chunk_for
 from .tm_device import (_params_for, default_check_every, tm_chunk,
                         tm_chunk_for)
@@ -113,7 +114,7 @@ class GateFleet:
             self._event.record(torch.cuda.current_stream(dev))
         else:
             self._out = out
-        GateFleet.dispatches += 1
+        add_count("gate_fleets")
 
     def result(self) -> tuple:
         if self._event is not None:
@@ -121,6 +122,3 @@ class GateFleet:
         out = self._out.numpy()
         return out[0], out[1], out[2]
 
-
-# fleets dispatched so far (a run can show that it took the device path)
-GateFleet.dispatches = 0

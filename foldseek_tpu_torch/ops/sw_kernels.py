@@ -34,6 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.log import add_count
 from .gapless import check_profile_range
 from .sw import sw_scan_torch
 
@@ -145,7 +146,7 @@ def sw_scores_pairs(prof_aa: torch.Tensor, prof_ss: torch.Tensor, slot_off,
     device and are used where they are when they lie on the card. Every slot
     must hold at least one row, and on the card every profile entry must lie
     in int8 range. Every launch of the SW kernel goes through this function
-    and adds one to `sw_scores_pairs.launches`."""
+    and adds one to the count `launches.sw` (utils/log.py)."""
     dev = res_aa.device
     if dev.type == "cpu":
         return sw_scores_pairs_torch(prof_aa, prof_ss, slot_off, pair_start,
@@ -218,8 +219,5 @@ def sw_scores_pairs(prof_aa: torch.Tensor, prof_ss: torch.Tensor, slot_off,
             score.data_ptr(), qend.data_ptr(), tend.data_ptr())
     if rc != 0:
         raise RuntimeError(f"SW kernel launch failed: CUDA error {rc}")
-    sw_scores_pairs.launches += 1
+    add_count("launches.sw")
     return score, qend, tend
-
-
-sw_scores_pairs.launches = 0

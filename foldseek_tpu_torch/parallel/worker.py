@@ -43,13 +43,9 @@ def _counted(fn, device):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..ops.gapless import gapless_scores_batch, gapless_scores_dual
-    from ..ops.sw_kernels import sw_scores_pairs
-    from ..utils.log import reset_stage_times, snapshot_stage_times
-    kernels = (gapless_scores_batch, gapless_scores_dual, sw_scores_pairs)
+    from ..utils.log import (reset_stage_times, snapshot_stage_times,
+                             stage_count)
     reset_stage_times()
-    for k in kernels:
-        k.launches = 0
     on_card = device.type == "cuda"
     with (profile(activities=[ProfilerActivity.CUDA]) if on_card
           else contextlib.nullcontext()) as prof:
@@ -59,13 +55,16 @@ def _counted(fn, device):
             torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
     out = dict(result=result, seconds=seconds,
-               launches=dict(zip(("gapless", "gapless_dual", "sw"),
-                                 (k.launches for k in kernels))),
+               launches={k: stage_count("launches." + k)
+                         for k in ("gapless", "gapless_dual", "sw")},
                stages=snapshot_stage_times())
     if on_card:
         cuda = torch.autograd.DeviceType.CUDA
+        # the program's "fs." ranges are mirrored onto the device's track:
+        # no device work
         ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == cuda)
+                 if e.device_type() == cuda
+                 and not e.name().startswith("fs."))
         out["device_busy_ms"] = ns / 1e6 or None
     return out
 

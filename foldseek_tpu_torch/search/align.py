@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import math
 import os
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +38,7 @@ from ..ops.matrices import blosum62, mat3di
 from ..ops.sw import QueryProfile
 from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
 from ..utils.hostpar import map_queries
-from ..utils.log import StageTimer, logger, record_count, record_stage
+from ..utils.log import logger, record_count, span
 from .params import INT_MAX, SearchParams, can_be_covered_mask, has_coverage
 from .results import AlnResult, compare_hits, compare_hits_by_structure_bits
 
@@ -131,13 +130,13 @@ def align_all(qdb: StructDB, tdb: StructDB,
     Returns query key -> sorted AlnResult list."""
     device = torch.device(device)
     record_count("align_pairs", sum(len(v) for v in prefilter.values()))
-    ev = EvalueComputer(tdb.total_residues)
-    tkey_to_idx = tdb.key_to_index()
-    qkey_to_idx = qdb.key_to_index()
-    t0 = time.perf_counter()
-    scorer = PairScorer(qdb, tdb, params, prefilter, qkey_to_idx,
-                        tkey_to_idx, device, query_profiles=query_profiles)
-    record_stage("sw_scoring", time.perf_counter() - t0)
+    with span("align.setup"):
+        ev = EvalueComputer(tdb.total_residues)
+        tkey_to_idx = tdb.key_to_index()
+        qkey_to_idx = qdb.key_to_index()
+    with span("sw_scoring"):
+        scorer = PairScorer(qdb, tdb, params, prefilter, qkey_to_idx,
+                            tkey_to_idx, device, query_profiles=query_profiles)
 
     need_tm = params.tmscore_threshold > 0 or params.sort_by_structure_bits
     need_lddt = params.lddt_threshold > 0 or params.sort_by_structure_bits
@@ -169,15 +168,18 @@ def align_all(qdb: StructDB, tdb: StructDB,
     else:
         gates_mode = "host" if can_defer and native_ready() else "inline"
 
+    tracebacks = []   # each query's pairs given a traceback
+
     def one(qkey_cands):
         qkey, cand_keys = qkey_cands
         qi = qkey_to_idx[int(qkey)]
-        return int(qkey), align_query(
+        results, n_tb = align_query(
             qi, qdb, tdb, cand_keys, params, ev, scorer, tkey_to_idx,
             need_tm=need_tm, need_lddt=need_lddt, same_db=same_db,
             gates_mode=gates_mode)
+        tracebacks.append(n_tb)
+        return int(qkey), results
 
-    t0 = time.perf_counter()
     if defer_gates:
         # waves: each wave's TM/LDDT fleets are dispatched as soon as its
         # backtraces exist, so the device computes wave k while the host
@@ -188,25 +190,34 @@ def align_all(qdb: StructDB, tdb: StructDB,
         per = -(-len(items) // n_waves)
         out = {}
         in_flight = []
-        for w0 in range(0, len(items), per):
-            wave_out = dict(map_queries(one, items[w0:w0 + per]))
-            out.update(wave_out)
-            in_flight.append(_device_gates_dispatch(
-                qdb, tdb, wave_out, params, qkey_to_idx, tkey_to_idx,
-                need_tm, need_lddt, device))
-        record_stage("host_loop", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for fleets in in_flight:
-            _device_gates_finish(fleets, params, need_tm, need_lddt)
-        record_stage("gates_drain", time.perf_counter() - t0)
+        with span("host_loop"):
+            for w0 in range(0, len(items), per):
+                wave_out = dict(map_queries(one, items[w0:w0 + per]))
+                out.update(wave_out)
+                with span("gates.dispatch"):
+                    in_flight.append(_device_gates_dispatch(
+                        qdb, tdb, wave_out, params, qkey_to_idx,
+                        tkey_to_idx, need_tm, need_lddt, device))
+        _count_hits(tracebacks, out)
+        with span("gates_drain"):
+            for fleets in in_flight:
+                _device_gates_finish(fleets, params, need_tm, need_lddt)
         key = (compare_hits_by_structure_bits
                if params.sort_by_structure_bits else compare_hits)
         for rs in out.values():
             rs.sort(key=key)
         return out
-    out = dict(map_queries(one, prefilter.items()))
-    record_stage("host_loop", time.perf_counter() - t0)
+    with span("host_loop"):
+        out = dict(map_queries(one, prefilter.items()))
+    _count_hits(tracebacks, out)
     return out
+
+
+def _count_hits(tracebacks, out):
+    """One number each for the call: the pairs given a traceback and the
+    records `align_query` returned (before any gate fleet)."""
+    record_count("align_backtraces", sum(tracebacks))
+    record_count("align_hits", sum(len(rs) for rs in out.values()))
 
 
 def _device_gates_dispatch(qdb, tdb, results, params, qkey_to_idx,
@@ -478,7 +489,7 @@ def _batch_tracebacks(prof, tdb, tids, params, fwd, qend, tend, pre_ok):
         return {}
     offs = np.asarray(tdb.offsets)
     if use_block_aligner(prof):
-        with StageTimer("batch_recover"):
+        with span("align.backtraces"):
             res = _block_tracebacks(
                 prof, np.asarray(tdb.aa), np.asarray(tdb.ss),
                 offs[tids[surv]], tend[surv], fwd[surv], qend[surv])
@@ -491,7 +502,7 @@ def _batch_tracebacks(prof, tdb, tids, params, fwd, qend, tend, pre_ok):
     if fprof is None:
         fprof = prof.flipped()
         prof._flipped_cache = fprof
-    with StageTimer("batch_recover"):
+    with span("align.backtraces"):
         res = native.batch_recover(
             fprof.prof_aa, fprof.prof_ss, prof.prof_aa, prof.prof_ss,
             np.asarray(prof.q_aa), np.asarray(tdb.aa), np.asarray(tdb.ss),
@@ -510,7 +521,19 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
                 cand_keys: Sequence[int], params: SearchParams,
                 ev: EvalueComputer, scorer: PairScorer, tkey_to_idx,
                 need_tm: bool, need_lddt: bool, same_db: bool,
-                gates_mode: str = "inline") -> List[AlnResult]:
+                gates_mode: str = "inline") -> Tuple[List[AlnResult], int]:
+    """One query's records and the number of its pairs given a traceback.
+    Spans (with "_cpu" in align_all's pool): `align.query` the whole,
+    `align.backtraces` the batched tracebacks, `align.hits` the loop over
+    the candidates, `align.gates` the host's batched TM/LDDT."""
+    with span("align.query"):
+        return _align_query(qi, qdb, tdb, cand_keys, params, ev, scorer,
+                            tkey_to_idx, need_tm, need_lddt, same_db,
+                            gates_mode)
+
+
+def _align_query(qi, qdb, tdb, cand_keys, params, ev, scorer, tkey_to_idx,
+                 need_tm, need_lddt, same_db, gates_mode):
     q_aa = qdb.get_aa(qi)
     q_ss = qdb.get_ss(qi)
     q_len = len(q_aa)
@@ -522,7 +545,7 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
 
     tids = np.array([tkey_to_idx[int(k)] for k in cand_keys], dtype=np.int64)
     if len(tids) == 0:
-        return []
+        return [], 0
 
     fwd, qend, tend, rev = scorer.per_query[qkey]
     scores = fwd - rev
@@ -554,194 +577,202 @@ def align_query(qi: int, qdb: StructDB, tdb: StructDB,
     results: List[AlnResult] = []
     passed = 0
     rejected = 0
-    for ci in range(len(tids)):
-        if passed >= params.max_accept or rejected >= params.max_rejected:
-            break
-        tkey = int(cand_keys[ci])
-        t_len = t_lens_l[ci]
-        # reference: isIdentity = (queryId == targetId && (includeIdentity || sameDB))
-        is_identity = (qkey_int == tkey) and identity_ok
-        if not pre_ok_l[ci]:
-            rejected += 1
-            continue
-        ti = tids[ci]
-
-        tb = pre_tb.get(ci)
-        if tb is None and use_block_aligner(prof):
-            tb = _block_traceback_one(
-                prof, np.asarray(tdb.get_aa(ti)), np.asarray(tdb.get_ss(ti)),
-                int(fwd[ci]), int(qend[ci]), int(tend[ci]))
-        if tb is None:
-            try:
-                tb = bt_ops.recover_alignment(
-                    prof, np.asarray(tdb.get_aa(ti)),
-                    np.asarray(tdb.get_ss(ti)),
-                    int(fwd[ci]), int(qend[ci]), int(tend[ci]))
-            except RuntimeError as e:
-                logger.warning("backtrace failed for query %d target %d: %s",
-                               qi, ti, e)
+    per_hit_tb = 0
+    with span("align.hits"):
+        for ci in range(len(tids)):
+            if passed >= params.max_accept or rejected >= params.max_rejected:
+                break
+            tkey = int(cand_keys[ci])
+            t_len = t_lens_l[ci]
+            # reference: isIdentity = (queryId == targetId && (includeIdentity || sameDB))
+            is_identity = (qkey_int == tkey) and identity_ok
+            if not pre_ok_l[ci]:
                 rejected += 1
                 continue
-        if tb is BLOCK_FAIL:
-            # the reference's block-align failure row: score1 = UINT32_MAX
-            # propagates the alignScoreEndPos struct unchanged (the dead
-            # `align.score1 == UINT32_MAX` check never triggers a fallback),
-            # so qStart/dbStart stay -1, the backtrace stays empty, covs
-            # keep their start-0 estimates, seqId is 0 and alnLength =
-            # computeAlnLength(-1, qEnd, -1, dbEnd)
-            # (structurealign.cpp:78-108, Matcher.cpp:155-157)
-            aln_len = max(qend_l[ci] + 1, tend_l[ci] + 1) + 1
+            ti = tids[ci]
+
+            tb = pre_tb.get(ci)
+            if tb is None:
+                per_hit_tb += 1
+                if use_block_aligner(prof):
+                    tb = _block_traceback_one(
+                        prof, np.asarray(tdb.get_aa(ti)),
+                        np.asarray(tdb.get_ss(ti)),
+                        int(fwd[ci]), int(qend[ci]), int(tend[ci]))
+                if tb is None:
+                    try:
+                        tb = bt_ops.recover_alignment(
+                            prof, np.asarray(tdb.get_aa(ti)),
+                            np.asarray(tdb.get_ss(ti)),
+                            int(fwd[ci]), int(qend[ci]), int(tend[ci]))
+                    except RuntimeError as e:
+                        logger.warning("backtrace failed for query %d target "
+                                       "%d: %s", qi, ti, e)
+                        rejected += 1
+                        continue
+            if tb is BLOCK_FAIL:
+                # the reference's block-align failure row: score1 = UINT32_MAX
+                # propagates the alignScoreEndPos struct unchanged (the dead
+                # `align.score1 == UINT32_MAX` check never triggers a fallback),
+                # so qStart/dbStart stay -1, the backtrace stays empty, covs
+                # keep their start-0 estimates, seqId is 0 and alnLength =
+                # computeAlnLength(-1, qEnd, -1, dbEnd)
+                # (structurealign.cpp:78-108, Matcher.cpp:155-157)
+                aln_len = max(qend_l[ci] + 1, tend_l[ci] + 1) + 1
+                res = AlnResult(
+                    db_key=tkey, score=scores_l[ci], seq_id=0.0,
+                    evalue=ev_corr_l[ci],
+                    q_start=-1, q_end=qend_l[ci], q_len=q_len,
+                    t_start=-1, t_end=tend_l[ci], t_len=t_len,
+                    backtrace="", qcov=min(1.0, (qend_l[ci] + 1) / q_len),
+                    tcov=min(1.0, (tend_l[ci] + 1) / t_len),
+                    aln_length=aln_len, identical=0)
+                ok = is_identity or (
+                    res.evalue <= params.evalue_thr
+                    and res.seq_id >= params.seq_id_thr
+                    and has_coverage(params.cov_thr, params.cov_mode, res.qcov,
+                                     res.tcov)
+                    and aln_len >= params.aln_len_thr)
+                if not ok:
+                    rejected += 1
+                    continue
+                if need_tm or need_lddt:
+                    # no aligned pairs: TM/LDDT degenerate to 0 (the gates below
+                    # then drop the row when a positive threshold is active)
+                    res.tm = 0.0
+                    res.lddt = 0.0
+                    if params.tmscore_threshold > 0 or params.lddt_threshold > 0:
+                        continue
+                    if params.sort_by_structure_bits and need_tm and need_lddt:
+                        res.score = 0
+                results.append(res)
+                passed += 1
+                rejected = 0
+                continue
+
+            aln_len = len(tb.backtrace)
+            seq_id = tb.identical_aa / aln_len if aln_len else 0.0
+            qcov = (qend_l[ci] - tb.q_start + 1) / q_len
+            tcov = (tend_l[ci] - tb.t_start + 1) / t_len
             res = AlnResult(
-                db_key=tkey, score=scores_l[ci], seq_id=0.0,
+                db_key=tkey, score=scores_l[ci], seq_id=float(np.float32(seq_id)),
                 evalue=ev_corr_l[ci],
-                q_start=-1, q_end=qend_l[ci], q_len=q_len,
-                t_start=-1, t_end=tend_l[ci], t_len=t_len,
-                backtrace="", qcov=min(1.0, (qend_l[ci] + 1) / q_len),
-                tcov=min(1.0, (tend_l[ci] + 1) / t_len),
-                aln_length=aln_len, identical=0)
+                q_start=int(tb.q_start), q_end=qend_l[ci], q_len=q_len,
+                t_start=int(tb.t_start), t_end=tend_l[ci], t_len=t_len,
+                backtrace=tb.backtrace, qcov=qcov, tcov=tcov,
+                aln_length=aln_len, identical=tb.identical_aa)
+
             ok = is_identity or (
                 res.evalue <= params.evalue_thr
                 and res.seq_id >= params.seq_id_thr
-                and has_coverage(params.cov_thr, params.cov_mode, res.qcov,
-                                 res.tcov)
+                and has_coverage(params.cov_thr, params.cov_mode, qcov, tcov)
                 and aln_len >= params.aln_len_thr)
             if not ok:
                 rejected += 1
                 continue
-            if need_tm or need_lddt:
-                # no aligned pairs: TM/LDDT degenerate to 0 (the gates below
-                # then drop the row when a positive threshold is active)
-                res.tm = 0.0
-                res.lddt = 0.0
-                if params.tmscore_threshold > 0 or params.lddt_threshold > 0:
-                    continue
+
+            if (need_tm or need_lddt) and gates_mode == "inline":
+                t_ca = tdb.get_ca(ti)
+                if need_tm:
+                    norm_len = tm_ops.normalization(
+                        params.tmscore_threshold_mode,
+                        min(res.q_end - res.q_start, res.t_end - res.t_start),
+                        q_len, t_len)
+                    tmres = tm_ops.compute_tm_score(q_ca, t_ca, res.q_start, res.t_start,
+                                                    res.backtrace, norm_len)
+                    if tmres.tmscore < params.tmscore_threshold:
+                        continue
+                    res.tm = tmres.tmscore
+                    res.u = tmres.u
+                    res.t = tmres.t
+                if need_lddt:
+                    lr = lddt_ops.compute_lddt(q_ca, t_ca, res.q_start, res.t_start,
+                                               res.backtrace, q_ctx=lddt_ctx)
+                    if lr.avg_lddt < params.lddt_threshold:
+                        continue
+                    res.lddt = lr.avg_lddt
                 if params.sort_by_structure_bits and need_tm and need_lddt:
-                    res.score = 0
+                    # degenerate superpositions (toy/colinear coords) can yield
+                    # NaN TM; finite-positive guard keeps parity elsewhere
+                    f = res.lddt * res.tm
+                    res.score = int(res.score * math.sqrt(f)) if f > 0 else 0
+
             results.append(res)
             passed += 1
             rejected = 0
-            continue
 
-        aln_len = len(tb.backtrace)
-        seq_id = tb.identical_aa / aln_len if aln_len else 0.0
-        qcov = (qend_l[ci] - tb.q_start + 1) / q_len
-        tcov = (tend_l[ci] - tb.t_start + 1) / t_len
-        res = AlnResult(
-            db_key=tkey, score=scores_l[ci], seq_id=float(np.float32(seq_id)),
-            evalue=ev_corr_l[ci],
-            q_start=int(tb.q_start), q_end=qend_l[ci], q_len=q_len,
-            t_start=int(tb.t_start), t_end=tend_l[ci], t_len=t_len,
-            backtrace=tb.backtrace, qcov=qcov, tcov=tcov,
-            aln_length=aln_len, identical=tb.identical_aa)
-
-        ok = is_identity or (
-            res.evalue <= params.evalue_thr
-            and res.seq_id >= params.seq_id_thr
-            and has_coverage(params.cov_thr, params.cov_mode, qcov, tcov)
-            and aln_len >= params.aln_len_thr)
-        if not ok:
-            rejected += 1
-            continue
-
-        if (need_tm or need_lddt) and gates_mode == "inline":
-            t_ca = tdb.get_ca(ti)
-            if need_tm:
-                norm_len = tm_ops.normalization(
-                    params.tmscore_threshold_mode,
-                    min(res.q_end - res.q_start, res.t_end - res.t_start),
-                    q_len, t_len)
-                tmres = tm_ops.compute_tm_score(q_ca, t_ca, res.q_start, res.t_start,
-                                                res.backtrace, norm_len)
-                if tmres.tmscore < params.tmscore_threshold:
-                    continue
-                res.tm = tmres.tmscore
-                res.u = tmres.u
-                res.t = tmres.t
-            if need_lddt:
-                lr = lddt_ops.compute_lddt(q_ca, t_ca, res.q_start, res.t_start,
-                                           res.backtrace, q_ctx=lddt_ctx)
-                if lr.avg_lddt < params.lddt_threshold:
-                    continue
-                res.lddt = lr.avg_lddt
-            if params.sort_by_structure_bits and need_tm and need_lddt:
-                # degenerate superpositions (toy/colinear coords) can yield
-                # NaN TM; finite-positive guard keeps parity elsewhere
-                f = res.lddt * res.tm
-                res.score = int(res.score * math.sqrt(f)) if f > 0 else 0
-
-        results.append(res)
-        passed += 1
-        rejected = 0
-
-        # alternative alignments: X-mask the aligned target region and
-        # re-align (structurealign.cpp:115-138, computeAlternativeAlignment)
-        if params.alt_alignment > 0:
-            from ..ops.sw import sw_score_endpos_np
-            t_aa = tdb.get_aa(ti)
-            t_ss = tdb.get_ss(ti)
-            t_aa_m = np.asarray(t_aa).copy()
-            t_ss_m = np.asarray(t_ss).copy()
-            prev = res
-            rprof = scorer.rprofs[qkey]
-            for _ in range(params.alt_alignment):
-                t_aa_m[prev.t_start:prev.t_end] = 20
-                t_ss_m[prev.t_start:prev.t_end] = 20
-                a_fwd, a_qe, a_te = sw_score_endpos_np(
-                    *prof.padded(prof.L), t_aa_m, t_ss_m,
-                    gap_open=prof.gap_open, gap_extend=prof.gap_extend)
-                a_rev, _, _ = sw_score_endpos_np(
-                    *rprof.padded(prof.L), t_aa_m, t_ss_m,
-                    gap_open=prof.gap_open, gap_extend=prof.gap_extend)
-                a_score = int(a_fwd) - int(a_rev)
-                a_ev = ev.evalue_corr(a_score, lam, mu)
-                if (ev.evalue_corr(a_fwd, lam, mu) > params.evalue_thr
-                        or a_ev > params.evalue_thr):
-                    break
-                a_tb = (_block_traceback_one(prof, t_aa_m, t_ss_m,
-                                             int(a_fwd), a_qe, a_te)
-                        if use_block_aligner(prof) else None)
-                if a_tb is BLOCK_FAIL:
-                    break  # reference would emit a -1/-1 empty-backtrace
-                    # alt row (computeAlternativeAlignment -> the same dead
-                    # fallback check); its X-masking of [-1, dbEnd) is UB,
-                    # so the alt chain stops here instead
-                if a_tb is None:
-                    try:
-                        a_tb = bt_ops.recover_alignment(
-                            prof, t_aa_m, t_ss_m, int(a_fwd), a_qe, a_te)
-                    except RuntimeError:
+            # alternative alignments: X-mask the aligned target region and
+            # re-align (structurealign.cpp:115-138, computeAlternativeAlignment)
+            if params.alt_alignment > 0:
+                from ..ops.sw import sw_score_endpos_np
+                t_aa = tdb.get_aa(ti)
+                t_ss = tdb.get_ss(ti)
+                t_aa_m = np.asarray(t_aa).copy()
+                t_ss_m = np.asarray(t_ss).copy()
+                prev = res
+                rprof = scorer.rprofs[qkey]
+                for _ in range(params.alt_alignment):
+                    t_aa_m[prev.t_start:prev.t_end] = 20
+                    t_ss_m[prev.t_start:prev.t_end] = 20
+                    a_fwd, a_qe, a_te = sw_score_endpos_np(
+                        *prof.padded(prof.L), t_aa_m, t_ss_m,
+                        gap_open=prof.gap_open, gap_extend=prof.gap_extend)
+                    a_rev, _, _ = sw_score_endpos_np(
+                        *rprof.padded(prof.L), t_aa_m, t_ss_m,
+                        gap_open=prof.gap_open, gap_extend=prof.gap_extend)
+                    a_score = int(a_fwd) - int(a_rev)
+                    a_ev = ev.evalue_corr(a_score, lam, mu)
+                    if (ev.evalue_corr(a_fwd, lam, mu) > params.evalue_thr
+                            or a_ev > params.evalue_thr):
                         break
-                a_len = len(a_tb.backtrace)
-                a_seqid = a_tb.identical_aa / a_len if a_len else 0.0
-                a_qcov = (a_qe - a_tb.q_start + 1) / q_len
-                a_tcov = (a_te - a_tb.t_start + 1) / t_len
-                alt = AlnResult(
-                    db_key=tkey, score=a_score,
-                    seq_id=float(np.float32(a_seqid)), evalue=float(a_ev),
-                    q_start=a_tb.q_start, q_end=a_qe, q_len=q_len,
-                    t_start=a_tb.t_start, t_end=a_te, t_len=t_len,
-                    backtrace=a_tb.backtrace, qcov=a_qcov, tcov=a_tcov,
-                    aln_length=a_len, identical=a_tb.identical_aa)
-                ok_alt = (alt.evalue <= params.evalue_thr
-                          and alt.seq_id >= params.seq_id_thr
-                          and alt.aln_length >= params.aln_len_thr
-                          and has_coverage(params.cov_thr, params.cov_mode,
-                                           a_qcov, a_tcov))
-                if not ok_alt:
-                    break
-                results.append(alt)
-                prev = alt
+                    a_tb = (_block_traceback_one(prof, t_aa_m, t_ss_m,
+                                                 int(a_fwd), a_qe, a_te)
+                            if use_block_aligner(prof) else None)
+                    if a_tb is BLOCK_FAIL:
+                        break  # reference would emit a -1/-1 empty-backtrace
+                        # alt row (computeAlternativeAlignment -> the same dead
+                        # fallback check); its X-masking of [-1, dbEnd) is UB,
+                        # so the alt chain stops here instead
+                    if a_tb is None:
+                        try:
+                            a_tb = bt_ops.recover_alignment(
+                                prof, t_aa_m, t_ss_m, int(a_fwd), a_qe, a_te)
+                        except RuntimeError:
+                            break
+                    a_len = len(a_tb.backtrace)
+                    a_seqid = a_tb.identical_aa / a_len if a_len else 0.0
+                    a_qcov = (a_qe - a_tb.q_start + 1) / q_len
+                    a_tcov = (a_te - a_tb.t_start + 1) / t_len
+                    alt = AlnResult(
+                        db_key=tkey, score=a_score,
+                        seq_id=float(np.float32(a_seqid)), evalue=float(a_ev),
+                        q_start=a_tb.q_start, q_end=a_qe, q_len=q_len,
+                        t_start=a_tb.t_start, t_end=a_te, t_len=t_len,
+                        backtrace=a_tb.backtrace, qcov=a_qcov, tcov=a_tcov,
+                        aln_length=a_len, identical=a_tb.identical_aa)
+                    ok_alt = (alt.evalue <= params.evalue_thr
+                              and alt.seq_id >= params.seq_id_thr
+                              and alt.aln_length >= params.aln_len_thr
+                              and has_coverage(params.cov_thr, params.cov_mode,
+                                               a_qcov, a_tcov))
+                    if not ok_alt:
+                        break
+                    results.append(alt)
+                    prev = alt
 
+    n_tb = len(pre_tb) + per_hit_tb
     if gates_mode == "device":
-        return results  # the caller sorts after the fleets' TM/LDDT scaling
+        # the caller sorts after the fleets' TM/LDDT scaling
+        return results, n_tb
     if gates_mode == "host":
-        _host_gates_batch(results, tdb, tkey_to_idx, params, q_len, q_ca,
-                          lddt_ctx, need_tm, need_lddt)
+        with span("align.gates"):
+            _host_gates_batch(results, tdb, tkey_to_idx, params, q_len, q_ca,
+                              lddt_ctx, need_tm, need_lddt)
     if params.sort_by_structure_bits:
         results.sort(key=compare_hits_by_structure_bits)
     else:
         results.sort(key=compare_hits)
-    return results
+    return results, n_tb
 
 
 def _host_gates_batch(results, tdb, tkey_to_idx, params, q_len, q_ca,

@@ -15,6 +15,7 @@ import numpy as np
 from ..db.storage import StructDB
 from ..ops import lddt as lddt_ops
 from ..ops import tmscore as tm_ops
+from ..utils.log import span
 from .results import AlnResult, compress_backtrace, compute_aln_length, format_seq_id
 
 DEFAULT_COLUMNS = ("query,target,fident,alnlen,mismatch,gapopen,"
@@ -62,32 +63,40 @@ def format_results(qdb: StructDB, tdb: StructDB,
                    results: Dict[int, List[AlnResult]],
                    fmt: str = DEFAULT_COLUMNS,
                    with_backtrace: bool = False) -> List[str]:
-    """Render m8 lines for all queries in query-key order."""
-    cols = fmt.split(",")
-    if CA_COLUMNS & set(cols) and any(results.values()):
-        require_ca(qdb, tdb, "columns "
-                   + ",".join(c for c in cols if c in CA_COLUMNS))
-    qkey_to_idx = qdb.key_to_index()
-    tkey_to_idx = tdb.key_to_index()
-    tax = None
-    if TAX_COLUMNS & set(cols):
-        import os
+    """Render m8 lines for all queries in query-key order. Spans: `format`
+    the whole, `format.setup` the key maps and taxonomy, `format.lines` the
+    lines."""
+    with span("format"):
+        cols = fmt.split(",")
+        with span("format.setup"):
+            if CA_COLUMNS & set(cols) and any(results.values()):
+                require_ca(qdb, tdb, "columns "
+                           + ",".join(c for c in cols if c in CA_COLUMNS))
+            qkey_to_idx = qdb.key_to_index()
+            tkey_to_idx = tdb.key_to_index()
+            tax = None
+            if TAX_COLUMNS & set(cols):
+                import os
 
-        from ..db.taxonomy import NcbiTaxonomy, load_db_mapping
-        mapping = load_db_mapping(tdb.path) or {}
-        taxdump = os.environ.get("FOLDSEEK_TPU_TAXDUMP", "")
-        ncbi = NcbiTaxonomy(taxdump) if taxdump and os.path.isdir(taxdump) else None
-        tax = (mapping, ncbi)
-    lines: List[str] = []
-    for qkey in sorted(results):
-        qi = qkey_to_idx[int(qkey)]
-        qname = qdb.headers[qi].split()[0] if qdb.headers[qi] else qdb.names[qi]
-        q_len = qdb.entry_len(qi)
-        for r in results[qkey]:
-            ti = tkey_to_idx[r.db_key]
-            tname = tdb.headers[ti].split()[0] if tdb.headers[ti] else tdb.names[ti]
-            lines.append(format_row(r, qname, tname, qdb, tdb, qi, ti, cols,
-                                    with_backtrace, tax=tax))
+                from ..db.taxonomy import NcbiTaxonomy, load_db_mapping
+                mapping = load_db_mapping(tdb.path) or {}
+                taxdump = os.environ.get("FOLDSEEK_TPU_TAXDUMP", "")
+                ncbi = (NcbiTaxonomy(taxdump)
+                        if taxdump and os.path.isdir(taxdump) else None)
+                tax = (mapping, ncbi)
+        lines: List[str] = []
+        with span("format.lines"):
+            for qkey in sorted(results):
+                qi = qkey_to_idx[int(qkey)]
+                qname = (qdb.headers[qi].split()[0] if qdb.headers[qi]
+                         else qdb.names[qi])
+                for r in results[qkey]:
+                    ti = tkey_to_idx[r.db_key]
+                    tname = (tdb.headers[ti].split()[0] if tdb.headers[ti]
+                             else tdb.names[ti])
+                    lines.append(format_row(r, qname, tname, qdb, tdb, qi,
+                                            ti, cols, with_backtrace,
+                                            tax=tax))
     return lines
 
 

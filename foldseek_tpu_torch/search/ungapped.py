@@ -34,7 +34,7 @@ from ..ops.gapless import (gapless_scores_batch, gapless_topk_batch,
 from ..ops.matrices import mat3di
 from ..ops.sw import calc_comp_bias
 from ..ops.sw_kernels import pack_sw_slots, sw_scores_pairs
-from ..utils.log import StageTimer, logger
+from ..utils.log import logger, span
 from .params import SearchParams, can_be_covered_mask
 from .results import AlnResult
 
@@ -111,10 +111,11 @@ class UngappedPrefilter:
         reference's rules; one kernel launch per (query stack, panel
         piece)."""
         profs, biases = [], []
-        for q_ss in seqs:
-            p, b = make_query_profile(q_ss)
-            profs.append(p)
-            biases.append(b)
+        with span("prefilter.profiles"):
+            for q_ss in seqs:
+                p, b = make_query_profile(q_ss)
+                profs.append(p)
+                biases.append(b)
         return self._run_batch(profs, biases, params)
 
     def query_profile(self, prof_ss: np.ndarray,
@@ -133,29 +134,37 @@ class UngappedPrefilter:
             profs, [abs(min(int(p.min()), 0)) for p in profs], params)
 
     def _run_batch(self, profs, byte_biases, params: SearchParams):
+        cands = self.scan(profs, byte_biases, params.max_seqs)
         out = []
-        for g, (s, idx) in enumerate(self.scan(profs, byte_biases,
-                                               params.max_seqs)):
-            ok = s > MIN_DIAG_SCORE
-            if params.cov_thr > 0.0:
-                # Util::canBeCovered length pre-gate
-                # (ungappedprefilter.cpp:403 applies it per target before
-                # scoring; host-side masking before the final top-k keeps
-                # the same surviving set)
-                qlen = profs[g].shape[1]
-                ok &= can_be_covered_mask(params.cov_thr, params.cov_mode,
-                                          qlen, self.tlens[idx])
-            s, idx = s[ok], idx[ok]
-            order = np.lexsort((self.keys[idx], -s))[: params.max_seqs]
-            out.append([(int(self.keys[idx[i]]), int(s[i])) for i in order])
+        with span("prefilter.merge"):
+            for g, (s, idx) in enumerate(cands):
+                ok = s > MIN_DIAG_SCORE
+                if params.cov_thr > 0.0:
+                    # Util::canBeCovered length pre-gate
+                    # (ungappedprefilter.cpp:403 applies it per target
+                    # before scoring; host-side masking before the final
+                    # top-k keeps the same surviving set)
+                    qlen = profs[g].shape[1]
+                    ok &= can_be_covered_mask(params.cov_thr,
+                                              params.cov_mode, qlen,
+                                              self.tlens[idx])
+                s, idx = s[ok], idx[ok]
+                order = np.lexsort((self.keys[idx], -s))[: params.max_seqs]
+                out.append([(int(self.keys[idx[i]]), int(s[i]))
+                            for i in order])
         return out
 
     def scan(self, profs, byte_biases, max_seqs: int):
         """Every query's ungapped candidates before any gate: (int64 scores,
         int64 DB entry indices) per query, all targets where a piece brings
         its full score rows home and each piece's `max_seqs` best where it
-        takes the device top-k."""
-        stacks = make_profile_stacks(profs, byte_biases, self.device)
+        takes the device top-k. Spans: `prefilter.profiles` (the stacks'
+        upload), `prefilter.launches` (the launches, each of which first
+        brings its stack's lengths and ranges home and so waits for the
+        launch before it), `prefilter.readback` (a split's copy home, which
+        waits for its last launches) and `prefilter.merge`."""
+        with span("prefilter.profiles"):
+            stacks = make_profile_stacks(profs, byte_biases, self.device)
         nq = len(profs)
         cand_scores = [[] for _ in range(nq)]
         cand_idx = [[] for _ in range(nq)]
@@ -163,33 +172,37 @@ class UngappedPrefilter:
 
         for split in self.panels.splits:
             pending = []   # (query indices, n_real, entry_idx, scores, rows)
-            for piece in split:
-                bucket = self.panels.buckets[piece.bucket]
-                rows = piece.row_end - piece.row_start
-                n_real = min(bucket.n, piece.row_end) - piece.row_start
-                if n_real <= 0:
-                    continue
-                t_dev = self.panels.device_panel(piece, keep=not multi_split)
-                entry_idx = bucket.entry_idx[
-                    piece.row_start: piece.row_start + n_real]
-                use_topk = self.keys_monotonic and rows >= max(
-                    DEVICE_TOPK_MIN_ROWS, 2 * max_seqs)
-                for grp, prof, q_off, caps in stacks:
-                    if use_topk:
-                        s, r = gapless_topk_batch(prof, q_off, caps, t_dev,
-                                                  min(rows, max_seqs))
-                        pending.append((grp, n_real, entry_idx, s,
-                                        r.to(torch.int32)))
-                    else:
-                        pending.append((grp, n_real, entry_idx,
-                                        gapless_scores_batch(prof, q_off,
-                                                             caps, t_dev),
-                                        None))
+            with span("prefilter.launches"):
+                for piece in split:
+                    bucket = self.panels.buckets[piece.bucket]
+                    rows = piece.row_end - piece.row_start
+                    n_real = min(bucket.n, piece.row_end) - piece.row_start
+                    if n_real <= 0:
+                        continue
+                    t_dev = self.panels.device_panel(piece,
+                                                     keep=not multi_split)
+                    entry_idx = bucket.entry_idx[
+                        piece.row_start: piece.row_start + n_real]
+                    use_topk = self.keys_monotonic and rows >= max(
+                        DEVICE_TOPK_MIN_ROWS, 2 * max_seqs)
+                    for grp, prof, q_off, caps in stacks:
+                        if use_topk:
+                            s, r = gapless_topk_batch(prof, q_off, caps,
+                                                      t_dev,
+                                                      min(rows, max_seqs))
+                            pending.append((grp, n_real, entry_idx, s,
+                                            r.to(torch.int32)))
+                        else:
+                            pending.append((grp, n_real, entry_idx,
+                                            gapless_scores_batch(
+                                                prof, q_off, caps, t_dev),
+                                            None))
             # one copy to the host per split; a streamed split's panels are
             # released when the next split replaces them
             blocks = [x for p in pending for x in p[3:] if x is not None]
-            flat = (torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
-                    if blocks else None)
+            with span("prefilter.readback"):
+                flat = (torch.cat([b.reshape(-1) for b in blocks]).cpu()
+                        .numpy() if blocks else None)
             off = 0
 
             def take(block):
@@ -198,23 +211,25 @@ class UngappedPrefilter:
                 off += block.numel()
                 return out
 
-            for grp, n_real, entry_idx, s_dev, r_dev in pending:
-                s = take(s_dev)
-                if r_dev is None:
-                    for r, g in enumerate(grp):
-                        cand_scores[g].append(s[r][:n_real])
-                        cand_idx[g].append(entry_idx)
-                else:
-                    ti = take(r_dev)
-                    for r, g in enumerate(grp):
-                        ok = ti[r] < n_real
-                        cand_scores[g].append(s[r][ok])
-                        cand_idx[g].append(entry_idx[ti[r][ok]])
+            with span("prefilter.merge"):
+                for grp, n_real, entry_idx, s_dev, r_dev in pending:
+                    s = take(s_dev)
+                    if r_dev is None:
+                        for r, g in enumerate(grp):
+                            cand_scores[g].append(s[r][:n_real])
+                            cand_idx[g].append(entry_idx)
+                    else:
+                        ti = take(r_dev)
+                        for r, g in enumerate(grp):
+                            ok = ti[r] < n_real
+                            cand_scores[g].append(s[r][ok])
+                            cand_idx[g].append(entry_idx[ti[r][ok]])
 
         empty = np.zeros(0, dtype=np.int64)
-        return [(np.concatenate(cand_scores[g]).astype(np.int64),
-                 np.concatenate(cand_idx[g]).astype(np.int64))
-                if cand_scores[g] else (empty, empty) for g in range(nq)]
+        with span("prefilter.merge"):
+            return [(np.concatenate(cand_scores[g]).astype(np.int64),
+                     np.concatenate(cand_idx[g]).astype(np.int64))
+                    if cand_scores[g] else (empty, empty) for g in range(nq)]
 
 
 def resident_prefilter(tdb: StructDB, device: torch.device) -> UngappedPrefilter:
@@ -228,9 +243,10 @@ def ungapped_prefilter(qdb: StructDB, tdb: StructDB, params: SearchParams,
     pref = resident_prefilter(tdb, device)
     seqs = [np.asarray(qdb.get_ss(qi)) for qi in range(qdb.size)]
     hits = pref.query_batch(seqs, params)
-    out: Dict[int, List[int]] = {
-        int(qdb.keys[qi]): [k for k, _ in hits[qi]]
-        for qi in range(qdb.size)}
+    with span("prefilter.merge"):
+        out: Dict[int, List[int]] = {
+            int(qdb.keys[qi]): [k for k, _ in hits[qi]]
+            for qi in range(qdb.size)}
     logger.info("ungapped prefilter: %d queries, avg %.1f hits",
                 qdb.size, np.mean([len(v) for v in out.values()]) if out else 0)
     return out
@@ -291,26 +307,30 @@ def _mode3_records(q_ss, qkey: int, ti, s, qes, tes, tkeys, tlens,
                    same_db: bool) -> List[AlnResult]:
     """One query's mode-3 records from its survivors (target indices `ti`,
     scores `s`, end positions `qes`, `tes`): E-value gate, order, cut."""
-    lam, mu = ev.predict_lambda_mu(q_ss)
-    distinct, inverse = np.unique(s, return_inverse=True)
-    evalue = np.array([ev.evalue_corr(int(v), lam, mu) for v in distinct],
-                      dtype=np.float64)[inverse]
-    ok = evalue <= params.evalue_thr
-    if same_db:
-        ok |= tkeys[ti] == qkey
-    ok = np.nonzero(ok)[0]
-    # compare_hits: (evalue, -score, t_len, db_key)
-    order = ok[np.lexsort((tkeys[ti[ok]], tlens[ti[ok]], -s[ok],
-                           evalue[ok]))][: params.max_seqs]
+    with span("mode3.evalues"):
+        lam, mu = ev.predict_lambda_mu(q_ss)
+        distinct, inverse = np.unique(s, return_inverse=True)
+        evalue = np.array([ev.evalue_corr(int(v), lam, mu)
+                           for v in distinct], dtype=np.float64)[inverse]
+    with span("mode3.order"):
+        ok = evalue <= params.evalue_thr
+        if same_db:
+            ok |= tkeys[ti] == qkey
+        ok = np.nonzero(ok)[0]
+        # compare_hits: (evalue, -score, t_len, db_key)
+        order = ok[np.lexsort((tkeys[ti[ok]], tlens[ti[ok]], -s[ok],
+                               evalue[ok]))][: params.max_seqs]
     results = []
-    for j in order.tolist():
-        sc, qe, te = int(s[j]), int(qes[j]), int(tes[j])
-        seq_id = min(1.0, max(0.0, sc / float(max(qe, te, 1))
-                              * SEQID_SLOPE + SEQID_OFFSET))
-        results.append(AlnResult(
-            db_key=int(tkeys[ti[j]]), score=sc, seq_id=seq_id,
-            evalue=float(evalue[j]), q_start=0, q_end=qe, q_len=len(q_ss),
-            t_start=0, t_end=te, t_len=int(tlens[ti[j]]), backtrace=""))
+    with span("mode3.records"):
+        for j in order.tolist():
+            sc, qe, te = int(s[j]), int(qes[j]), int(tes[j])
+            seq_id = min(1.0, max(0.0, sc / float(max(qe, te, 1))
+                                  * SEQID_SLOPE + SEQID_OFFSET))
+            results.append(AlnResult(
+                db_key=int(tkeys[ti[j]]), score=sc, seq_id=seq_id,
+                evalue=float(evalue[j]), q_start=0, q_end=qe,
+                q_len=len(q_ss), t_start=0, t_end=te,
+                t_len=int(tlens[ti[j]]), backtrace=""))
     return results
 
 
@@ -340,7 +360,7 @@ def ungapped_and_gapped_results(qdb: StructDB, tdb: StructDB,
     ev = EvalueComputer(tdb.total_residues)
     tkeys = np.asarray(tdb.keys, dtype=np.int64)
     tlens = np.diff(panels.offsets)
-    with StageTimer("sw_scoring"):
+    with span("sw_scoring"):
         score, q_end, t_end = sw_scores_all_targets(
             [mode3_profile(s) for s in seqs], panels, params.gap_open,
             params.gap_extend)
@@ -353,7 +373,7 @@ def ungapped_and_gapped_results(qdb: StructDB, tdb: StructDB,
         hit_s, hit_qe, hit_te = (x[keep].cpu().numpy().astype(np.int64)
                                  for x in (score, q_end, t_end))
     out: Dict[int, List] = {}
-    with StageTimer("host_loop"):
+    with span("host_loop"):
         bounds = np.searchsorted(hit_q, np.arange(qdb.size + 1))
         for qi, q_ss in enumerate(seqs):
             sel = slice(bounds[qi], bounds[qi + 1])

@@ -13,6 +13,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, List
 
+from .log import pool_task
 
 _thread_cap = 0  # 0 = auto (all cores); set via --threads
 
@@ -29,10 +30,13 @@ def n_host_threads(n_items: int) -> int:
 
 
 def map_queries(fn: Callable, items: Iterable) -> List:
-    """Ordered map of fn over items, thread-parallel when it helps."""
+    """Ordered map of fn over items, thread-parallel when it helps; the
+    spans fn opens count thread CPU seconds (utils/log.py `pool_task`), on
+    the pool's threads or, for one thread, on the caller's."""
     items = list(items)
     n = n_host_threads(len(items))
+    task = pool_task(fn)
     if n <= 1:
-        return [fn(x) for x in items]
+        return [task(x) for x in items]
     with ThreadPoolExecutor(n) as ex:
-        return list(ex.map(fn, items))
+        return list(ex.map(task, items))

@@ -15,6 +15,7 @@ from foldseek_tpu_torch.ops import gapless as tg
 from foldseek_tpu_torch.ops import sw_kernels as tk
 from foldseek_tpu_torch.ops.sw import QueryProfile
 from foldseek_tpu_torch.search.ungapped import BYTE_CAP, make_query_profile
+from foldseek_tpu_torch.utils.log import stage_count
 
 import _torch_adapters as ad
 
@@ -48,10 +49,10 @@ def _gapless_inputs(rng, lens, n_targets, dev):
 def test_gapless_kernel_matches_plain(cuda, lens):
     rng = np.random.RandomState(len(lens))
     args = _gapless_inputs(rng, lens, 700, cuda)
-    before = tg.gapless_scores_batch.launches
+    before = stage_count("launches.gapless")
     got = tg.gapless_scores_batch(*args)
     torch.cuda.synchronize()
-    assert tg.gapless_scores_batch.launches == before + 1
+    assert stage_count("launches.gapless") == before + 1
     assert torch.equal(got, tg.gapless_scores_batch_torch(*args))
 
 
@@ -108,10 +109,10 @@ def test_gapless_dual_kernel_matches_plain(cuda, lens):
     args = [torch.from_numpy(a).to(cuda) for a in (
         stack_aa, stack_ss, q_off, ad.prepare_targets_T(aa, t_len, lt_pad=256),
         ad.prepare_targets_T(ss, t_len, lt_pad=256))]
-    before = tg.gapless_scores_dual.launches
+    before = stage_count("launches.gapless_dual")
     got = tg.gapless_scores_dual(*args)
     torch.cuda.synchronize()
-    assert tg.gapless_scores_dual.launches == before + 1
+    assert stage_count("launches.gapless_dual") == before + 1
     assert torch.equal(got, tg.gapless_scores_dual_torch(*args))
     assert int(got.max()) > 0 and not got[:, 500:].any()
     with pytest.raises(ValueError):
@@ -147,10 +148,10 @@ def test_sw_kernel_matches_plain(cuda, lens):
     queries and tile-boundary lengths."""
     rng = np.random.RandomState(sum(lens))
     args = _sw_inputs(rng, lens, 300, 120, cuda)
-    before = tk.sw_scores_pairs.launches
+    before = stage_count("launches.sw")
     got = tk.sw_scores_pairs(*args)
     torch.cuda.synchronize()
-    assert tk.sw_scores_pairs.launches == before + 1
+    assert stage_count("launches.sw") == before + 1
     want = tk.sw_scores_pairs_torch(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -246,9 +247,9 @@ def test_search_on_card_matches_cpu(cuda, tmp_path, mode, monkeypatch):
     lines = {}
     for dev in (cuda, torch.device("cpu")):
         params = SearchParams(prefilter_mode=mode, add_backtrace=mode == 1)
-        before = tk.sw_scores_pairs.launches
+        before = stage_count("launches.sw")
         res = search(qdb, tdb, params, dev, same_db=False)
-        assert (tk.sw_scores_pairs.launches > before) == (dev.type == "cuda")
+        assert (stage_count("launches.sw") > before) == (dev.type == "cuda")
         lines[dev.type] = format_results(qdb, tdb, res, params.format_output,
                                          with_backtrace=mode == 1)
     assert len(lines["cpu"]) > 1000 and lines["cuda"] == lines["cpu"]
@@ -408,15 +409,14 @@ def test_search_device_gates_on_card(cuda, tmp_path, monkeypatch):
     the size) against the host's gates on the CPU: equal hit sets and
     backtraces; TM and LDDT within 2e-3, the structure-bit score within 1
     (float32 fleets against the float64 host engine)."""
-    from foldseek_tpu_torch.ops.gates_device import GateFleet
     from foldseek_tpu_torch.search import SearchParams, search
     tdb, qdb = _fixture_dbs(tmp_path, 600, 4)
     params = SearchParams(prefilter_mode=1, add_backtrace=True)
     monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
-    before = GateFleet.dispatches
+    before = stage_count("gate_fleets")
     dev = search(qdb, tdb, params, cuda, same_db=False)
     torch.cuda.synchronize()
-    assert GateFleet.dispatches > before
+    assert stage_count("gate_fleets") > before
     monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
     host = search(qdb, tdb, params, torch.device("cpu"), same_db=False)
     n = 0
@@ -455,7 +455,7 @@ def test_pssm_call_shapes_on_card(cuda, tmp_path):
     from foldseek_tpu_torch.search import ungapped as tung
     tdb, qprofs = _pssm_profiles(tmp_path)
     cpu = torch.device("cpu")
-    before = tg.gapless_scores_batch.launches
+    before = stage_count("launches.gapless")
     for qp in qprofs:
         assert not qp.prof_ss[20].any() and qp.prof_ss.min() < 0
         got = tung.UngappedPrefilter(tdb, cuda).query_profile(
@@ -463,7 +463,7 @@ def test_pssm_call_shapes_on_card(cuda, tmp_path):
         want = tung.UngappedPrefilter(tdb, cpu).query_profile(
             qp.prof_ss, SearchParams())
         assert got == want and len(got) > 10
-    assert tg.gapless_scores_batch.launches > before
+    assert stage_count("launches.gapless") > before
     slots = [p for qp in qprofs for p in (qp, qp.reversed())]
     paa, pss, slot_off = tk.pack_sw_slots([p.prof_aa for p in slots],
                                           [p.prof_ss for p in slots])
@@ -477,10 +477,10 @@ def test_pssm_call_shapes_on_card(cuda, tmp_path):
             torch.from_numpy(paa).to(dev), torch.from_numpy(pss).to(dev),
             slot_off, pair_start, res_aa, res_ss, offs[tids],
             offs[tids + 1] - offs[tids])
-    before = tk.sw_scores_pairs.launches
+    before = stage_count("launches.sw")
     got = run(cuda)
     torch.cuda.synchronize()
-    assert tk.sw_scores_pairs.launches == before + 1
+    assert stage_count("launches.sw") == before + 1
     for g, w in zip(got, run(cpu)):
         assert torch.equal(g.cpu(), w)
     assert int(got[0].max()) > 50
@@ -494,10 +494,10 @@ def test_cluster_db_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     cluster's align runs without TM/LDDT gates, so the results are exact."""
     from foldseek_tpu_torch.cluster.workflow import ClusterParams, cluster_db
     tdb, _ = _fixture_dbs(tmp_path, 300, 1)
-    before = tk.sw_scores_pairs.launches
+    before = stage_count("launches.sw")
     got = cluster_db(tdb, ClusterParams(), cuda)
     torch.cuda.synchronize()
-    assert tk.sw_scores_pairs.launches > before
+    assert stage_count("launches.sw") > before
     assert got == cluster_db(tdb, ClusterParams(), torch.device("cpu"))
     assert 1 < len(got) < tdb.size
 
@@ -518,12 +518,12 @@ def test_rbh_and_multimer_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     params = SearchParams(prefilter_mode=1)
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        before = (tg.gapless_scores_batch.launches, tk.sw_scores_pairs.launches)
+        before = (stage_count("launches.gapless"), stage_count("launches.sw"))
         res = rbh(qdb, tdb, params, dev)
         out[dev.type, "rbh"] = format_results(qdb, tdb, res,
                                               params.format_output)
         out[dev.type, "multimer"] = multimer_search(qdb, tdb, params, dev)
-        after = (tg.gapless_scores_batch.launches, tk.sw_scores_pairs.launches)
+        after = (stage_count("launches.gapless"), stage_count("launches.sw"))
         assert all(a > b for a, b in zip(after, before)) == (dev.type == "cuda")
     assert out["cuda", "rbh"] == out["cpu", "rbh"] and out["cpu", "rbh"]
     assert out["cuda", "multimer"] == out["cpu", "multimer"]
@@ -547,7 +547,7 @@ def test_index_server_on_card_matches_in_process(cuda, tmp_path, monkeypatch):
     from foldseek_tpu_torch.search.ungapped import UngappedPrefilter
     tdb, qdb = _fixture_dbs(tmp_path, 400, 4)
     sock = os.path.join(tempfile.mkdtemp(prefix="fs"), "s.sock")
-    before = tg.gapless_scores_batch.launches
+    before = stage_count("launches.gapless")
     thread = threading.Thread(target=server.serve,
                               args=(tdb.path, sock, 1000, "cuda"), daemon=True)
     thread.start()
@@ -557,7 +557,7 @@ def test_index_server_on_card_matches_in_process(cuda, tmp_path, monkeypatch):
     client = server.IndexServerClient(sock)
     got = client.query_batch(seqs)
     client.close()
-    assert tg.gapless_scores_batch.launches > before
+    assert stage_count("launches.gapless") > before
     assert got == UngappedPrefilter(tdb, cuda).query_batch(seqs,
                                                            SearchParams())
     monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "0")
@@ -584,12 +584,12 @@ def test_structurealign_verb_on_card_matches_cpu(cuda, tmp_path):
                  "--gpu", "1", "--device", "cpu", "-v", "1"]) == 0
     out = {}
     for dev in ("cuda", "cpu"):
-        before = tk.sw_scores_pairs.launches
+        before = stage_count("launches.sw")
         path = str(tmp_path / f"aln_{dev}")
         assert main(["structurealign", qdb.path, tdb.path, res, path, "-a",
                      "--device", dev, "-v", "1"]) == 0
         torch.cuda.synchronize()
-        assert (tk.sw_scores_pairs.launches > before) == (dev == "cuda")
+        assert (stage_count("launches.sw") > before) == (dev == "cuda")
         out[dev] = open(path, "rb").read()
     assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 20
 
@@ -658,14 +658,14 @@ def test_prostt5_db_search_on_card_matches_cpu(cuda, tmp_path):
     for target, name in ((tdb.path, "structures"), (seq_db, "self")):
         out = {}
         for dev in ("cuda", "cpu"):
-            before = (tg.gapless_scores_batch.launches,
-                      tk.sw_scores_pairs.launches)
+            before = (stage_count("launches.gapless"),
+                      stage_count("launches.sw"))
             res = str(tmp_path / f"res_{name}_{dev}")
             assert main(["search", seq_db, target, res, res + "_tmp",
                          "--gpu", "1", "-a", "--device", dev, "-v", "1"]) == 0
             torch.cuda.synchronize()
-            gapless = tg.gapless_scores_batch.launches - before[0]
-            sw = tk.sw_scores_pairs.launches - before[1]
+            gapless = stage_count("launches.gapless") - before[0]
+            sw = stage_count("launches.sw") - before[1]
             if dev == "cpu":
                 assert (gapless, sw) == (0, 0)
             else:
@@ -714,15 +714,15 @@ def test_easy_taxonomy_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
                  str(tmp_path / "map.tsv"), "-v", "1"]) == 0
     out = {}
     for dev in ("cuda", "cpu"):
-        before = (tg.gapless_scores_batch.launches,
-                  tk.sw_scores_pairs.launches)
+        before = (stage_count("launches.gapless"),
+                  stage_count("launches.sw"))
         prefix = str(tmp_path / dev)
         assert main(["easy-taxonomy", qdb.path, tdb.path, prefix,
                      prefix + "_tmp", "--gpu", "1", "--device", dev,
                      "-v", "1"]) == 0
         torch.cuda.synchronize()
-        after = (tg.gapless_scores_batch.launches,
-                 tk.sw_scores_pairs.launches)
+        after = (stage_count("launches.gapless"),
+                 stage_count("launches.sw"))
         assert all(a > b for a, b in zip(after, before)) == (dev == "cuda")
         out[dev] = [open(prefix + s, "rb").read()
                     for s in ("_lca.tsv", "_report", "_tophit_aln")]
@@ -750,13 +750,13 @@ def test_clusterupdate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     new = updated_db(tdb, extra, drop, str(tmp_path / "new"))
     out = {}
     for dev in ("cuda", "cpu"):
-        before = tk.sw_scores_pairs.launches
+        before = stage_count("launches.sw")
         path = str(tmp_path / f"new_{dev}.tsv")
         assert main(["clusterupdate", tdb.path, new.path,
                      prefix + "_cluster.tsv", path, str(tmp_path / dev),
                      "--device", dev, "-v", "1"]) == 0
         torch.cuda.synchronize()
-        assert (tk.sw_scores_pairs.launches > before) == (dev == "cuda")
+        assert (stage_count("launches.sw") > before) == (dev == "cuda")
         out[dev] = open(path, "rb").read()
     assert out["cuda"] == out["cpu"]
     members = sorted(line.split(b"\t")[1] for line in out["cpu"].splitlines())
@@ -781,14 +781,14 @@ def test_msa2profile_search_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
                  qdb.path, "-v", "1"]) == 0
     out = {}
     for dev in ("cuda", "cpu"):
-        before = (tg.gapless_scores_batch.launches,
-                  tk.sw_scores_pairs.launches)
+        before = (stage_count("launches.gapless"),
+                  stage_count("launches.sw"))
         res = f"{d}/pres_{dev}"
         assert main(["search", f"{d}/prof", tdb.path, res, res + "_tmp",
                      "--gpu", "1", "-a", "--device", dev, "-v", "1"]) == 0
         torch.cuda.synchronize()
-        after = (tg.gapless_scores_batch.launches,
-                 tk.sw_scores_pairs.launches)
+        after = (stage_count("launches.gapless"),
+                 stage_count("launches.sw"))
         assert all(a > b for a, b in zip(after, before)) == (dev == "cuda")
         out[dev] = open(res, "rb").read()
     assert out["cuda"] == out["cpu"] and out["cpu"].count(b"\n") > 100

@@ -10,6 +10,7 @@ from foldseek_tpu.ops import gapless_pallas as jg
 from foldseek_tpu.ops.matrices import mat3di
 from foldseek_tpu.search.ungapped import (BYTE_CAP, make_query_profile)
 from foldseek_tpu_torch.ops import gapless as tg
+from foldseek_tpu_torch.utils.log import stage_count
 
 import _torch_adapters as ad
 
@@ -125,11 +126,11 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     rng = np.random.RandomState(2)
     profs, caps = _profiles(rng, [20, 30])
     _, _, tt = _targets(rng, 10, 5, 40)
-    before = tg.gapless_scores_batch.launches
+    before = stage_count("launches.gapless")
     args = _port_stack(profs, caps) + [torch.from_numpy(tt)]
     assert torch.equal(tg.gapless_scores_batch(*args),
                        tg.gapless_scores_batch_torch(*args))
-    assert tg.gapless_scores_batch.launches == before
+    assert stage_count("launches.gapless") == before
 
 
 def test_pack_profile_rejects_fractional_scores():
@@ -214,11 +215,11 @@ def test_gapless_dual_stack_matches_single_queries():
                                                 [0] * len(profs))
     stack_ss, _, _ = tg.pack_profiles_batch([p for _, p in profs],
                                             [0] * len(profs))
-    before = tg.gapless_scores_dual.launches
+    before = stage_count("launches.gapless_dual")
     got = tg.gapless_scores_dual(torch.from_numpy(stack_aa),
                                  torch.from_numpy(stack_ss),
                                  torch.from_numpy(q_off), t_aa, t_ss)
-    assert tg.gapless_scores_dual.launches == before
+    assert stage_count("launches.gapless_dual") == before
     assert got.shape == (3, 128)
     for k, (paa, pss) in enumerate(profs):
         one = ad.gapless_scores_dual(torch.from_numpy(tg.pack_profile(paa)),

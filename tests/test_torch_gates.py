@@ -32,6 +32,7 @@ from foldseek_tpu_torch.ops import lddt as tlddt
 from foldseek_tpu_torch.ops import tm_device as ttm
 from foldseek_tpu_torch.search import SearchParams
 from foldseek_tpu_torch.search import pipeline as tpipe
+from foldseek_tpu_torch.utils.log import stage_count
 
 from _torch_adapters import few_torch_threads, torch_fleet_from_jax
 
@@ -260,9 +261,9 @@ def test_gate_fleet_matches_jax(need_tm, need_lddt):
     import jax.numpy as jnp
     jfleet.dispatch(jnp.asarray(t_panel), jnp.asarray(q_coords),
                     jnp.asarray(q_deg))
-    before = tgates.GateFleet.dispatches
+    before = stage_count("gate_fleets")
     tfleet.dispatch(*(torch.from_numpy(a) for a in (t_panel, q_coords, q_deg)))
-    assert tgates.GateFleet.dispatches == before + 1
+    assert stage_count("gate_fleets") == before + 1
     for got, want in zip(tfleet.result(), jfleet.result()):
         assert got.shape == (P,)
         assert np.abs(got - want).max() < FLEET_TOL
@@ -312,11 +313,11 @@ def test_search_with_device_gates_on_cpu(dbs, host_results, panel,
     monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
     if panel == "union":
         monkeypatch.setattr(TorchPanelSet, "ca", lambda self: None)
-    before = tgates.GateFleet.dispatches
+    before = stage_count("gate_fleets")
     dev = _records(tpipe.search(
         tq, tt, SearchParams(prefilter_mode=1, add_backtrace=True), CPU,
         same_db=False))
-    assert tgates.GateFleet.dispatches > before
+    assert stage_count("gate_fleets") > before
     assert len(dev) > 150 and set(dev) == set(thost) == set(jhost)
     for key, d in dev.items():
         for h in (thost[key], jhost[key]):
@@ -342,15 +343,15 @@ def test_device_gates_env_and_threshold(dbs, monkeypatch):
             monkeypatch.delenv("FOLDSEEK_TPU_DEVICE_GATES", raising=False)
         else:
             monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", env)
-        before = tgates.GateFleet.dispatches
+        before = stage_count("gate_fleets")
         tpipe.search(tq, tt, replace(params, max_seqs=10), CPU, same_db=False)
-        assert (tgates.GateFleet.dispatches > before) == want_fleets, env
+        assert (stage_count("gate_fleets") > before) == want_fleets, env
     # thresholds on TM make the accept loop depend on the gates: no fleets
     monkeypatch.setenv("FOLDSEEK_TPU_DEVICE_GATES", "1")
-    before = tgates.GateFleet.dispatches
+    before = stage_count("gate_fleets")
     tpipe.search(tq, tt, replace(params, max_seqs=10, tmscore_threshold=0.2),
                  CPU, same_db=False)
-    assert tgates.GateFleet.dispatches == before
+    assert stage_count("gate_fleets") == before
 
 
 def test_ca_panel_is_made_once_and_holds_the_db(dbs):

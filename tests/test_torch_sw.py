@@ -16,6 +16,7 @@ from foldseek_tpu.ops import sw as jsw
 from foldseek_tpu.ops import sw_pallas as jsp
 from foldseek_tpu_torch.ops import sw as tsw
 from foldseek_tpu_torch.ops import sw_kernels as tk
+from foldseek_tpu_torch.utils.log import stage_count
 
 import _torch_adapters as ad
 
@@ -186,11 +187,11 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     rng = np.random.RandomState(8)
     prof = tsw.QueryProfile(*_seq(rng, 40))
     t_aa, t_ss, t_len = _padded_targets(rng, 5, 30)
-    before = tk.sw_scores_pairs.launches
+    before = stage_count("launches.sw")
     ad.sw_scores_query(torch.from_numpy(prof.prof_aa),
                        torch.from_numpy(prof.prof_ss), torch.from_numpy(t_aa),
                        torch.from_numpy(t_ss), t_len)
-    assert tk.sw_scores_pairs.launches == before
+    assert stage_count("launches.sw") == before
 
 
 def test_batch_matches_jax():
