@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from types import MappingProxyType
+from typing import List, Mapping, Optional
 
 import numpy as np
 
 from ..ops.matrices import AA2NUM, ALPHABET
+from ..utils.log import add_count, record_count
 
 DB_VERSION = 1
 
@@ -50,6 +52,10 @@ class StructDB:
     fileids: Optional[np.ndarray] = None  # uint32 [n]
     # source file names by file id (the reference's .source file)
     sources: Optional[List[str]] = None
+    # (the keys array, its length, the read-only map built from it): see
+    # key_to_index
+    _key_map: Optional[tuple] = field(default=None, init=False, repr=False,
+                                      compare=False)
 
     @property
     def size(self) -> int:
@@ -82,8 +88,24 @@ class StructDB:
         s = "".join(ALPHABET[v] for v in self.get_ss(i))
         return _apply_mask(s, self.mask[self.offsets[i]:self.offsets[i + 1]])
 
-    def key_to_index(self):
-        return {int(k): i for i, k in enumerate(self.keys)}
+    def key_to_index(self) -> Mapping[int, int]:
+        """key -> row, the last row where a key repeats, as a read-only
+        mapping built once per `keys` array: a DB searched call after call
+        (the index server, a benchmark's or a user's loop) builds it once,
+        and a `keys` replaced by another array gets a map of its own.
+        Counts: `key_maps.built` the keys of each map built,
+        `key_maps.reused` the calls answered from the stored one."""
+        keys = self.keys
+        held = self._key_map
+        if held is not None and held[0] is keys and held[1] == len(keys):
+            add_count("key_maps.reused")
+            return held[2]
+        n = len(keys)
+        built = MappingProxyType(dict(zip(np.asarray(keys).tolist(),
+                                          range(n))))
+        self._key_map = (keys, n, built)
+        record_count("key_maps.built", n)
+        return built
 
     def max_len(self) -> int:
         return int(self.lengths().max()) if self.size else 0

@@ -36,7 +36,10 @@ STAGE_TIMES: dict = {}
 # Beside it, what each stage worked on: record_count() appends one number a
 # call under its label (the pairs an `align_all` call scored, the entries of
 # each device panel set made), in call order; add_count() adds to the
-# window's one number under its label (kernel launches, gate fleets).
+# window's one number under its label (kernel launches, gate fleets). The
+# DBs' key maps (db/storage.py `StructDB.key_to_index`) record the keys of
+# each map built under "key_maps.built" and add the calls answered from a
+# stored map under "key_maps.reused".
 STAGE_COUNTS: dict = {}
 _stage_lock = threading.Lock()
 
