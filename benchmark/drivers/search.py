@@ -26,12 +26,25 @@ def struct_db(res, names: List[str], keys: np.ndarray):
 
 
 class SearchDriver:
-    def __init__(self, cfg: Dict, db, device):
+    def __init__(self, cfg: Dict, db, device, rank: int = 0, size: int = 1):
+        """The program's DB and settings on this rank's `device`. Every rank
+        of a world gets the whole generated DB; `rank` and `size` let a
+        driver keep only its share."""
         from foldseek_tpu_torch.search.params import SearchParams
         names = [f"T{i}" for i in range(db.size)]
         self.tdb = struct_db(db, names, np.arange(db.size))
         self.params = SearchParams(**cfg["search"])
         self.device = device
+        self.rank, self.size = rank, size
+
+    @staticmethod
+    def join_world(init_method: str, rank: int, size: int, device: str,
+                   timeout_seconds: float) -> None:
+        """Form the program's world of `size` ranks, this process as `rank`
+        on `device`, as a user's script does before any other work."""
+        from foldseek_tpu_torch.parallel.distributed import init_distributed
+        init_distributed(init_method=init_method, world_size=size, rank=rank,
+                         device=device, timeout_seconds=timeout_seconds)
 
     def batch(self, queries, idx: np.ndarray):
         """Query DB of pool entries `idx` (made before the window)."""

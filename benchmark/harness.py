@@ -14,6 +14,15 @@ driver and the check it takes, the limits), its traffic in
 A traced run profiles the window's first `trace_calls` calls; the host
 metrics (stage times, spans, latencies) read only the calls after the
 profiler has closed, which it slows.
+
+A cell of one card runs in this process on `cuda:0`. A cell of N > 1 cards
+runs as N processes, rank r on `cuda:r` (`run_world` starts them, `run_rank`
+is each): every rank forms the program's world through the driver's
+`join_world`, generates the same inputs from the seed and makes every call
+(the program's calls are collectives); rank 0 runs the loop and sends each
+call's index to the others over the harness's own gloo group (`World`), and
+its clock, calls and check give the result. The devices are measured on
+every rank and counted by `device_report`.
 """
 from __future__ import annotations
 
@@ -24,10 +33,15 @@ import importlib.util
 import json
 import os
 import resource
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+import traceback
+from datetime import timedelta
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -36,10 +50,18 @@ ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "foldseek_tpu")
 CHECK_STREAM = 4
 SLOT_CALLS = 2           # calls whose first and last query the check takes
+# seconds a collective of the program's group or of the harness's may wait
+# for a peer: more than the longest call or trace reading of one rank, less
+# than a run may last
+RANK_TIMEOUT_S = 300
+# seconds from the launcher's start by which every rank of a world has ended:
+# within the first run's allowance, which builds the kernels
+WORLD_DEADLINE_S = 1150
+LOG_PREFIX = "[bench]"    # "[bench rN]" in rank N > 0 of a world
 
 
 def log(msg: str) -> None:
-    print(f"[bench] {msg}", file=sys.stderr, flush=True)
+    print(f"{LOG_PREFIX} {msg}", file=sys.stderr, flush=True)
 
 
 def load_json(*parts):
@@ -155,16 +177,97 @@ def read_trace(prof, wall_s: float) -> Dict:
                                idle_gaps=top(by_host)))
 
 
+def read_card(dev) -> Dict:
+    """A rank's device as measured: the card's index, name and UUID and
+    `max_memory_allocated` over set-up and window. The CPU has no such
+    counter: it reads as one device that held nothing."""
+    import torch
+    if dev.type != "cuda":
+        return dict(platform=dev.type, index=-1, name=dev.type,
+                    uuid=dev.type, peak_bytes=0)
+    return dict(platform="gpu", index=dev.index,
+                name=torch.cuda.get_device_name(dev),
+                uuid=str(torch.cuda.get_device_properties(dev).uuid),
+                peak_bytes=int(torch.cuda.max_memory_allocated(dev)))
+
+
+def device_report(per_rank: List[Dict]) -> Dict:
+    """The run's `device` from every rank's report (`read_card`, with
+    `rank` and, in a traced run, `busy_s` and `window_s`), rank 0 first.
+    `count` is the cards that held memory, each once by UUID;
+    `memory_peak_bytes` the fullest card's peak (ranks that share a card add
+    up); `busy_s` the mean over the ranks and `window_s` rank 0's traced
+    wall, so the idle share is the average card's; `devices` every report."""
+    held: Dict[str, int] = {}
+    for r in per_rank:
+        held[r["uuid"]] = held.get(r["uuid"], 0) + r["peak_bytes"]
+    first = per_rank[0]
+    out = dict(platform=first["platform"], kind=first["name"],
+               count=sum(1 for b in held.values() if b > 0),
+               memory_peak_bytes=max(held.values()))
+    if all("busy_s" in r for r in per_rank):
+        out["busy_s"] = sum(r["busy_s"] for r in per_rank) / len(per_rank)
+        out["window_s"] = first["window_s"]
+    out["devices"] = per_rank
+    return out
+
+
+class World:
+    """This rank's place in a cell of several cards, and the harness's own
+    gloo group for its control traffic (each call's index, the ranks'
+    reports), apart from the program's group."""
+    STOP = -1
+
+    def __init__(self, rank: int, size: int):
+        import torch
+        import torch.distributed as dist
+        self.rank, self.size, self.dist = rank, size, dist
+        self.group = dist.new_group(
+            backend="gloo", timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        self.box = torch.zeros(1, dtype=torch.int64)
+
+    def send(self, c: int) -> None:
+        """Rank 0: the index of the call it makes next, or STOP."""
+        self.box[0] = c
+        self.dist.broadcast(self.box, 0, group=self.group)
+
+    def recv(self) -> int:
+        self.dist.broadcast(self.box, 0, group=self.group)
+        return int(self.box[0])
+
+    def barrier(self) -> None:
+        self.dist.barrier(group=self.group)
+
+    def gather(self, obj) -> List:
+        out = [None] * self.size
+        self.dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+
+def follow(win: "Window", world: World) -> None:
+    """A rank other than 0 in the window: the calls rank 0 makes, in its
+    order, until it sends STOP."""
+    c = world.recv()
+    while c != World.STOP:
+        win.call(c)
+        c = world.recv()
+
+
 class Window:
     """The measured window: one call of a batch of queries at a time
     through the driver, each recorded with its start (its arrival, where
     the loop gives one) and end. The first `n_trace` calls run under
     torch.profiler; once it has closed, the program's counters start
-    afresh and `host_from` marks the first call the host metrics read."""
+    afresh and `host_from` marks the first call the host metrics read.
+    With `lead`, rank 0 of a world sends each call's index before making
+    it; with `fatal`, a failed call raises (in a world its peers would wait
+    for it in a collective)."""
 
-    def __init__(self, driver, qdbs, batches, n_trace, dev, fault=None):
+    def __init__(self, driver, qdbs, batches, n_trace, dev, fault=None,
+                 lead: Optional[World] = None, fatal: bool = False):
         self.driver, self.qdbs, self.batches = driver, qdbs, batches
         self.n_trace, self.dev, self.fault = n_trace, dev, fault
+        self.lead, self.fatal = lead, fatal
         self.calls: List[Dict] = []
         self.attempted = self.failed = 0
         self.prof, self.traced, self.trace_wall = None, 0, 0.0
@@ -190,6 +293,8 @@ class Window:
     def call(self, c: int, arrival: Optional[float] = None) -> None:
         """Call `c`: pool batch c mod the pool's calls."""
         import torch
+        if self.lead is not None:
+            self.lead.send(c)
         n = len(self.batches)
         idx = self.batches[c % n]
         if self.traced < self.n_trace and self.prof is None:
@@ -207,7 +312,9 @@ class Window:
             b = time.perf_counter()
             with torch.profiler.record_function("bench.format_results"):
                 lines = self.driver.call_format(self.qdbs[c % n], res)
-        except Exception as e:    # a failed call is counted, not fatal
+        except Exception as e:    # alone, a failed call is counted
+            if self.fatal:
+                raise
             log(f"call {c} failed: {e!r}")
             self.failed += len(idx)
             res, lines, b = None, None, time.perf_counter()
@@ -263,10 +370,15 @@ def pick_sample(calls: List[np.ndarray], traffic: Dict, seed: int,
 def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
              trace: bool, device, t0: float, cfg: Optional[Dict] = None,
              traffic: Optional[Dict] = None,
-             fault: Optional[Callable] = None) -> Dict:
+             fault: Optional[Callable] = None,
+             world: Optional[World] = None, need: int = 0,
+             driver_cls: Optional[type] = None) -> Optional[Dict]:
     """One run. `cfg` / `traffic` replace the cell's files (the CPU tests'
     small sizes); `fault(res, lines)` breaks each call's answers (the
-    tests that the check catches faults)."""
+    tests that the check catches faults); `driver_cls` replaces the
+    configuration's driver. In a `world`, every rank runs this and only
+    rank 0 returns the result. Fewer than `need` cards holding memory ends
+    the run before its check."""
     import torch
     from benchmark.gen import families as gen
     from benchmark.reference import dp
@@ -292,8 +404,11 @@ def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
         f"{time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
-    driver_mod = importlib.import_module(f"benchmark.drivers.{cfg['driver']}")
-    driver = driver_mod.SearchDriver(cfg, db, dev)
+    if driver_cls is None:
+        driver_cls = importlib.import_module(
+            f"benchmark.drivers.{cfg['driver']}").SearchDriver
+    rank, size = (world.rank, world.size) if world is not None else (0, 1)
+    driver = driver_cls(cfg, db, dev, rank, size)
     n_calls = traffic["pool"] // qpc
     batches = [order[c * qpc:(c + 1) * qpc] for c in range(n_calls)]
     qdbs = [driver.batch(queries, b) for b in batches]
@@ -311,13 +426,22 @@ def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
     driver.reset_counters()
 
     n_trace = traffic["trace_calls"] if trace else 0
+    if world is not None:
+        world.barrier()           # every rank warm before the window opens
     setup_s = time.perf_counter() - t0
-    win = Window(driver, qdbs, batches, n_trace, dev, fault)
-    loop.drive(win, traffic, seconds)
+    win = Window(driver, qdbs, batches, n_trace, dev, fault,
+                 lead=world if rank == 0 and world is not None else None,
+                 fatal=world is not None)
+    if rank == 0:
+        loop.drive(win, traffic, seconds)
+        if world is not None:
+            world.send(World.STOP)
+    else:
+        follow(win, world)
     win.close()
     calls, start = win.calls, win.start
     stage_times, stage_counts = driver.counters()
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    card = dict(rank=rank, **read_card(dev))
     ok_calls = [c for c in calls if c["res"] is not None]
     done = sum(len(c["idx"]) for c in ok_calls)
     window_s = (max(c["end"] for c in calls) - start) if calls else seconds
@@ -345,6 +469,18 @@ def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
         trace_data["query_lengths"] = [
             int(x) for c in calls[:n_trace] for x in queries.lengths[c["idx"]]]
         log(f"trace of {n_trace} calls read: {time.perf_counter() - t:.3f} s")
+        from benchmark.roofline import union_seconds
+        card.update(busy_s=union_seconds(trace_data["intervals"]),
+                    window_s=trace_data["wall_s"])
+    device_out = device_report(world.gather(card) if world is not None
+                               else [card])
+    if rank != 0:
+        return None
+    if device_out["count"] < need:
+        raise SystemExit(
+            f"the run used {device_out['count']} card(s) of the "
+            f"{need} it was given: a rank's card that held no memory or a "
+            f"card that two ranks shared; ranks: {device_out['devices']}")
     prof = win.prof = None
     gc.collect()
     if cuda:
@@ -386,7 +522,8 @@ def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
     ctx = dict(queries=host_q, window_s=window_s, setup_s=setup_s,
                latencies=[c["end"] - c["start"] for c in host_calls
                           for _ in c["idx"]],
-               peak_bytes=peak, stage_times=stage_times,
+               peak_bytes=device_out["memory_peak_bytes"],
+               ranks=device_out["devices"], stage_times=stage_times,
                stage_counts=stage_counts,
                spans=dict(search=sum(c["search_s"] for c in host_calls),
                           format=sum(c["format_s"] for c in host_calls)),
@@ -399,15 +536,8 @@ def run_cell(bench: Dict, workload: str, seed: int, seconds: float,
             metrics[m["name"]] = dict(value=float(v), unit=m["unit"])
     out = dict(correct=bool(correct), attempted=win.attempted,
                failed=win.failed,
-               metrics=metrics,
-               device=dict(platform="gpu" if cuda else dev.type,
-                           kind=(torch.cuda.get_device_name(dev) if cuda
-                                 else "cpu"),
-                           count=1, memory_peak_bytes=int(peak)))
+               metrics=metrics, device=device_out)
     if trace_data is not None:
-        from benchmark.roofline import union_seconds
-        out["device"]["busy_s"] = union_seconds(trace_data["intervals"])
-        out["device"]["window_s"] = trace_data["wall_s"]
         out["breakdown"] = trace_data["breakdown"]
     out["checks"] = {name: dict(value=numbers[name], limit=lim)
                      for name, lim in cfg["limits"].items()}
@@ -419,14 +549,155 @@ def forbidden_modules() -> List[str]:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
 
-def main(argv=None, t0: Optional[float] = None) -> int:
-    t0 = time.perf_counter() if t0 is None else t0
+def watch_launcher() -> None:
+    """End this rank when the launcher that started it has gone (killed
+    from outside, it could not end its ranks itself)."""
+    ppid = os.getppid()
+
+    def watch():
+        while os.getppid() == ppid:
+            time.sleep(1.0)
+        os._exit(1)
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def run_rank(args, bench: Dict, t0: float, device: Optional[str] = None,
+             cfg: Optional[Dict] = None, traffic: Optional[Dict] = None,
+             driver_cls: Optional[type] = None) -> int:
+    """One rank of a world that `launch` started: rank r on `cuda:r` (or
+    `device`), in the program's world and the harness's group, through the
+    whole run. Rank 0 prints the result line, with its check's lines under
+    `_check_lines` for the launcher; the others print nothing on stdout.
+    Any failure ends the rank with a non-zero code: it is never carried on
+    past, since its peers would wait for it. Returns the exit code."""
+    global LOG_PREFIX
+    import torch
+    if args.rank:
+        LOG_PREFIX = f"[bench r{args.rank}]"
+    watch_launcher()
+    try:
+        _cell, cfg0, _traffic = load_cell(bench, args.workload)
+        if driver_cls is None:
+            driver_cls = importlib.import_module(
+                f"benchmark.drivers.{(cfg or cfg0)['driver']}").SearchDriver
+        dev = torch.device(device or f"cuda:{args.rank}")
+        driver_cls.join_world(args.init_method, args.rank, args.world_size,
+                              str(dev), RANK_TIMEOUT_S)
+        world = World(args.rank, args.world_size)
+        out = run_cell(bench, args.workload, args.seed, args.seconds,
+                       bool(args.trace), dev, t0, cfg=cfg, traffic=traffic,
+                       world=world, need=args.world_size,
+                       driver_cls=driver_cls)
+        bad = forbidden_modules()
+        if bad:
+            log(f"forbidden modules loaded: {bad}")
+            return 3
+        if out is not None:
+            print(json.dumps(out), flush=True)
+        return 0
+    except SystemExit as e:     # too few cards, or an unknown cell
+        log(str(e.code))
+        return 1
+    except Exception:       # the rank ends, and the launcher ends its peers
+        log(f"failed:\n{traceback.format_exc()}")
+        return 1
+
+
+def exit_rank(rc: int) -> None:
+    """Leave a rank's process at once: the program's communicators are not
+    torn down one by one against peers that may have gone."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
+def launch(cmd: List[str], size: int, t0: float, deadline: float,
+           env: Optional[Dict] = None) -> Tuple[List[int], Optional[Dict]]:
+    """Start `size` ranks, each `cmd` with its rank's arguments, meeting in
+    a file store in a temporary directory; wait for all of them. When one
+    exits non-zero or `deadline` (a `perf_counter` time) passes, the others
+    are killed. Returns the exit codes and rank 0's result, or None."""
+    with tempfile.TemporaryDirectory(prefix="bench-world-") as tmp:
+        out0 = os.path.join(tmp, "rank0.out")
+        procs = []
+        try:
+            with open(out0, "w") as f0:
+                for r in range(size):
+                    procs.append(subprocess.Popen(
+                        cmd + ["--rank", str(r), "--world-size", str(size),
+                               "--init-method", f"file://{tmp}/store",
+                               "--t0", repr(t0)],
+                        stdin=subprocess.DEVNULL,
+                        stdout=f0 if r == 0 else 2, cwd=ROOT, env=env))
+            while True:
+                rcs = [p.poll() for p in procs]
+                bad = [(r, rc) for r, rc in enumerate(rcs) if rc]
+                if bad:
+                    log(f"rank {bad[0][0]} exited {bad[0][1]}: ending the "
+                        "others")
+                    break
+                if all(rc == 0 for rc in rcs):
+                    break
+                if time.perf_counter() > deadline:
+                    log(f"the ranks did not end within "
+                        f"{deadline - t0:.0f} s: ending them")
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            rcs = [p.wait() for p in procs]
+        if any(rcs):
+            return rcs, None
+        with open(out0) as f:
+            lines = f.read().splitlines()
+        return rcs, (json.loads(lines[-1]) if lines else None)
+
+
+def run_world(argv: List[str], size: int, t0: float) -> int:
+    """A cell of `size` cards: one rank a card (`run_rank`, started by
+    `launch` as this script again with the rank's arguments); this process
+    prints rank 0's result, and its check's lines last on stderr, once
+    every rank has exited 0."""
+    def ended(signum, _frame):
+        raise SystemExit(128 + signum)   # the `finally` of `launch` kills
+    signal.signal(signal.SIGTERM, ended)
+    cmd = [sys.executable, os.path.join(HERE, "run.py"), *argv]
+    rcs, out = launch(cmd, size, t0, t0 + WORLD_DEADLINE_S)
+    if out is None:
+        log(f"no result: the ranks exited {rcs}")
+        return 4
+    bad = forbidden_modules()
+    if bad:
+        log(f"forbidden modules loaded: {bad}")
+        return 3
+    for line in out.pop("_check_lines"):
+        log(line)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, default=0, choices=(0, 1))
-    args = ap.parse_args(argv)
+    # a rank of a world: given by `launch`, never by a user
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world-size", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", help=argparse.SUPPRESS)
+    ap.add_argument("--t0", type=float, help=argparse.SUPPRESS)
+    return ap.parse_args(argv)
+
+
+def main(argv=None, t0: Optional[float] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.t0 is not None:
+        t0 = args.t0                # a rank: set-up counts from the launcher
+    t0 = time.perf_counter() if t0 is None else t0
     bench = load_json(ROOT, "BENCHMARK.json")
     cell, _cfg, _traffic = load_cell(bench, args.workload)
     if importlib.util.find_spec("foldseek_tpu_torch") is None:
@@ -439,10 +710,14 @@ def main(argv=None, t0: Optional[float] = None) -> int:
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
     cache_env()
+    if args.rank is not None:
+        exit_rank(run_rank(args, bench, t0))
     log(f"card: {card_facts()}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
+    if cell["chips"] > 1:
+        return run_world(argv, cell["chips"], t0)
     out = run_cell(bench, args.workload, args.seed, args.seconds,
-                   bool(args.trace), "cuda:0", t0)
+                   bool(args.trace), "cuda:0", t0, need=cell["chips"])
     bad = forbidden_modules()
     if bad:
         log(f"forbidden modules loaded: {bad}")

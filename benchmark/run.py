@@ -5,7 +5,9 @@
 
 prints set-up, the window and the check on standard error (the numbers
 compared, each beside its limit, last) and one JSON line on standard output.
-Exits non-zero without a result when the cell's cards are missing.
+Exits non-zero without a result when the cell's cards are missing or fewer
+of them held memory than the cell asks for. A cell of several cards starts
+this script again once a card, as the world's ranks, and waits for them.
 """
 import time
 
