@@ -110,6 +110,24 @@ class StructDB:
     def max_len(self) -> int:
         return int(self.lengths().max()) if self.size else 0
 
+    def row_view(self, start: int, end: int) -> "StructDB":
+        """Rows [start, end) as a DB of their own, clipped to the DB's
+        rows: every array a slice of this DB's (no copy), the offsets
+        rebased to 0 and the path kept (an index at the path describes
+        this DB, not the view, so `load_index` declines it)."""
+        start, end = min(start, self.size), min(end, self.size)
+        o0, o1 = int(self.offsets[start]), int(self.offsets[end])
+        return StructDB(
+            path=self.path, aa=self.aa[o0:o1], ss=self.ss[o0:o1],
+            mask=self.mask[o0:o1],
+            ca=None if self.ca is None else self.ca[o0:o1],
+            offsets=self.offsets[start:end + 1] - o0,
+            keys=self.keys[start:end], names=self.names[start:end],
+            headers=self.headers[start:end],
+            fileids=(None if self.fileids is None
+                     else self.fileids[start:end]),
+            sources=self.sources)
+
 
 def _apply_mask(s: str, mask: np.ndarray) -> str:
     if not mask.any():

@@ -10,10 +10,13 @@ prefix heavy stages with $RUNNER, data/structuresearch.sh:46).
 Here one process runs a device and the processes form one process group
 (`init_distributed`); each rank loads ONLY its row range of the target DB
 onto its device (`mesh.shard_targets`), queries are replicated, and the
-per-rank top-ks merge with one all_gather; the align stage is sharded by
-query and its records merge with one all_gather of their text lines. No
-shared-filesystem round trip, no master rank. Without a process group every
-entry point runs as a world of one rank.
+per-rank top-ks merge with one all_gather. In `search` the align stage too
+works on the rank's rows (`row_sharded_align`); the stages that hold the
+whole DB on every rank (TM-align, LoLalign, the cluster cascade, multimer
+expansion) are sharded by query (`sharded_align_all`). Either way the
+ranks' records cross whole, pickled (`exchange`). No shared-filesystem
+round trip, no master rank. Without a process group every entry point runs
+as a world of one rank.
 
 Launch every rank with torchrun's environment (MASTER_ADDR, MASTER_PORT,
 WORLD_SIZE, RANK, LOCAL_RANK; `torchrun --nproc-per-node N script.py`) or
@@ -24,14 +27,14 @@ from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..device import get_device
-from ..utils.log import logger
+from ..utils.log import logger, record_count, span
 
 ROW_MULTIPLE = 128  # the panels' row block; also the per-rank row granularity
 
@@ -117,40 +120,101 @@ def host_row_range(n_pad: int, rank: int, size: int) -> tuple:
 
 def distributed_search(qdb, tdb, params, device=None,
                        same_db: Optional[bool] = None):
-    """Multi-rank end-to-end search: the prefilter scans the row-sharded
-    target DB on every rank (DistributedPrefilter), then the align stage
-    (SW kernel, backtraces, TM/LDDT) is sharded by QUERY across the ranks
-    (each aligns the queries i % size == rank against its full mmap of the
-    target DB, the reference's omp-for over queries lifted to processes;
-    $RUNNER on structurealign, data/structuresearch.sh:50) and the records
-    are merged with one all_gather. A world of one rank takes the same path.
+    """`search` in the current world on `device` (default: the rank's, from
+    `init_distributed`): in a world of several ranks the prefilter and the
+    align stage run over this rank's rows of the target DB
+    (`sharded_prefilter`, `row_sharded_align`). Returns the full {qkey:
+    [AlnResult]} on every rank."""
+    from ..search.pipeline import search
+    device = torch.device(device) if device is not None else rank_device()
+    return search(qdb, tdb, params, device, same_db=same_db)
 
-    Returns the full {qkey: [AlnResult]} on every rank."""
-    if same_db is None:
-        same_db = qdb.path == tdb.path
-    pref_obj = DistributedPrefilter(tdb, device)
-    seqs = [np.asarray(qdb.get_ss(i)) for i in range(qdb.size)]
-    hits = pref_obj.query_batch(seqs, params)
-    pref = {int(qdb.keys[qi]): [t for t, _ in hits[qi]]
+
+def sharded_prefilter(qdb, tdb, params, device) -> Dict[int, List[int]]:
+    """The ungapped prefilter (`--prefilter-mode 1`) of a world: each rank
+    scans its rows (`DistributedPrefilter`), the lists merge, and every rank
+    gets {qkey: [target key]} as one process would."""
+    seqs = [np.asarray(qdb.get_ss(qi)) for qi in range(qdb.size)]
+    hits = DistributedPrefilter(tdb, device).query_batch(seqs, params)
+    return {int(qdb.keys[qi]): [k for k, _ in hits[qi]]
             for qi in range(qdb.size)}
-    return sharded_align_all(qdb, tdb, pref, params, pref_obj.mesh.device,
-                             same_db=same_db)
+
+
+def exchange(obj) -> list:
+    """Every rank's `obj`, in rank order, on every rank: pickled whole, so
+    records cross exactly (every float at full precision)."""
+    parts = [None] * world()[1]
+    dist.all_gather_object(parts, obj)
+    return parts
+
+
+def row_sharded_align(qdb, tdb, prefilter, params, device,
+                      same_db: bool) -> Dict[int, list]:
+    """The align stage of a world over the row-sharded DB: each rank aligns
+    the candidates of every query that lie in its rows (`shard_targets`)
+    with `align_all` against its own resident panels (SW kernel, residues,
+    C-alpha, gate fleets), E-values over the whole DB's residues and the
+    fleets-or-host choice made on the whole stage's pairs, as one process
+    makes both. Span `align.exchange`: the ranks' records gathered exactly
+    (`exchange`), merged, and each query's list put in the final order
+    (`compare_hits_by_structure_bits` or `compare_hits`, stable, so ties
+    fall as in one process). Counts: `shard.pairs` (pairs this rank
+    aligned), and from the exchange `shard.pairs_max` (the busiest rank's)
+    and `shard.pairs_all` (all ranks'). Every rank returns the full {qkey:
+    [AlnResult]}.
+
+    An accept/reject budget below INT_MAX stops a query's loop in prefilter
+    order, which no rank can follow over its rows alone: the stage is then
+    sharded by query (`sharded_align_all`)."""
+    from ..search.align import align_all
+    from ..search.params import INT_MAX
+    from ..search.results import compare_hits, compare_hits_by_structure_bits
+    from .mesh import make_mesh, shard_targets
+
+    if params.max_accept < INT_MAX or params.max_rejected < INT_MAX:
+        return sharded_align_all(qdb, tdb, prefilter, params, device,
+                                 same_db=same_db)
+    mesh = make_mesh(device)
+    st = shard_targets(tdb, mesh)
+    row = tdb.key_to_index()
+    mine = {}
+    for qk, cands in prefilter.items():
+        rows = np.fromiter((row[int(k)] for k in cands), np.int64, len(cands))
+        keep = np.nonzero((rows >= st.row_start) & (rows < st.row_end))[0]
+        mine[qk] = [cands[i] for i in keep.tolist()]
+    n_mine = sum(len(v) for v in mine.values())
+    record_count("shard.pairs", n_mine)
+    res = align_all(qdb, st.view, mine, params, mesh.device, same_db=same_db,
+                    db_residues=tdb.total_residues,
+                    gate_pairs=sum(len(v) for v in prefilter.values()))
+    with span("align.exchange"):
+        parts = exchange((n_mine, res))
+        pairs = [n for n, _ in parts]
+        record_count("shard.pairs_max", max(pairs))
+        record_count("shard.pairs_all", sum(pairs))
+        out = {int(qk): [] for qk in prefilter}
+        for _n, part in parts:
+            for qk, rs in part.items():
+                out[int(qk)].extend(rs)
+        key = (compare_hits_by_structure_bits
+               if params.sort_by_structure_bits else compare_hits)
+        for rs in out.values():
+            rs.sort(key=key)
+    return out
 
 
 def sharded_align_all(qdb, tdb, prefilter, params, device, same_db=None,
                       query_profiles=None, stage_fn=None):
     """Query-sharded align stage: each rank runs align_all on `device` over
     its slice of the (sorted) query keys against its full target mmap (the
-    reference's $RUNNER on structurealign, data/structuresearch.sh:50; also
-    the cluster cascade's and multimer expansion's heavy stage,
-    data/structurecluster.sh:95, data/multimersearch.sh:27), then the
-    records of every rank are merged with one all_gather of their text
-    lines (`result_to_line`, parsed back by `parse_result_line`, as the JAX
-    package merges them), so every rank returns the full, identical {qkey:
-    [AlnResult]}. A world of one rank: plain align_all, no gather."""
+    reference's $RUNNER on structurealign, data/structuresearch.sh:50; the
+    TM-align and LoLalign stages, the cluster cascade's and multimer
+    expansion's heavy stage, data/structurecluster.sh:95,
+    data/multimersearch.sh:27), then the records of every rank are
+    gathered exactly (`exchange`, span `align.exchange`), so every rank
+    returns the full, identical {qkey: [AlnResult]}. A world of one rank:
+    plain align_all, no gather."""
     from ..search.align import align_all
-    from ..search.results import result_to_line
-    from ..search.resultdb import parse_result_line
 
     if same_db is None:
         same_db = qdb.path == tdb.path
@@ -167,15 +231,10 @@ def sharded_align_all(qdb, tdb, prefilter, params, device, same_db=None,
                          query_profiles=query_profiles)
     if size == 1:
         return mine
-    text = "\n".join(f"{qk}\t{result_to_line(r, True)}"
-                     for qk in sorted(mine) for r in mine[qk])
-    texts = [None] * size
-    dist.all_gather_object(texts, text)
-    out = {int(qk): [] for qk in prefilter}
-    for part in texts:
-        for line in part.splitlines():
-            qk, r = parse_result_line(line)
-            out.setdefault(qk, []).append(r)
+    with span("align.exchange"):
+        out = {int(qk): [] for qk in prefilter}
+        for part in exchange(mine):
+            out.update(part)
     return out
 
 
@@ -189,11 +248,11 @@ def alignment_backend(align_fn):
 
 
 class DistributedPrefilter:
-    """Ungapped prefilter over a row-sharded target DB: the gating and
-    ordering of search.ungapped.UngappedPrefilter (score above
-    MIN_DIAG_SCORE, top max_seqs by (score desc, key asc)), with the scan
-    running on every rank and one all_gather merge. Like the JAX package's,
-    it applies no coverage pre-gate (`can_be_covered`)."""
+    """Ungapped prefilter over a row-sharded target DB: this rank's shard
+    (`mesh.shard_targets`, made once per DB and kept), scanned and gated
+    as `search.ungapped.UngappedPrefilter` gates (score above
+    MIN_DIAG_SCORE, the coverage pre-gate, top max_seqs by (score desc, key
+    asc)) on every rank, with one all_gather merge."""
 
     def __init__(self, tdb, device=None):
         from .mesh import make_mesh, shard_targets
@@ -202,22 +261,19 @@ class DistributedPrefilter:
         self.st = shard_targets(tdb, self.mesh)
 
     def query_batch(self, seqs, params) -> List[List[tuple]]:
-        from ..search.ungapped import MIN_DIAG_SCORE, make_query_profile
+        from ..search.ungapped import make_query_profile
         from .mesh import sharded_gapless_topk
 
         profs, biases = [], []
-        for q_ss in seqs:
-            p, b = make_query_profile(q_ss)
-            profs.append(p)
-            biases.append(b)
+        with span("prefilter.profiles"):
+            for q_ss in seqs:
+                p, b = make_query_profile(q_ss)
+                profs.append(p)
+                biases.append(b)
         # queries of any length share the stacks: the gapless kernel has no
         # row limit, so the JAX package's long-query split is not needed
-        s, keys = sharded_gapless_topk(self.st, profs, biases,
-                                       params.max_seqs)
-        out: List[List[tuple]] = []
-        for r in range(len(seqs)):
-            ok = (s[r] > MIN_DIAG_SCORE) & (keys[r] >= 0)
-            sr, kr = s[r][ok], keys[r][ok]
-            order = np.lexsort((kr, -sr))[: params.max_seqs]
-            out.append([(int(kr[i]), int(sr[i])) for i in order])
-        return out
+        s, keys = sharded_gapless_topk(self.st, profs, biases, params)
+        with span("prefilter.merge"):
+            return [list(zip(keys[r][keys[r] >= 0].tolist(),
+                             s[r][keys[r] >= 0].tolist()))
+                    for r in range(len(seqs))]

@@ -73,7 +73,7 @@ def run(args) -> dict:
     from ..db.storage import load_db
     from ..search.convertalis import format_results
     from ..search.params import SearchParams
-    from ..search.ungapped import MIN_DIAG_SCORE, make_query_profile
+    from ..search.ungapped import make_query_profile
     from .distributed import (DistributedPrefilter, distributed_search,
                               init_distributed, rank_device, world)
     from .mesh import sharded_gapless_long
@@ -98,10 +98,9 @@ def run(args) -> dict:
 
         def long_query():
             prof, bias = make_query_profile(np.concatenate(seqs))
-            s, k = sharded_gapless_long(prefs[0].st, prof, bias,
-                                        params.max_seqs)
-            ok = (s > MIN_DIAG_SCORE) & (k >= 0)
-            return [(int(a), int(b)) for a, b in zip(k[ok], s[ok])]
+            s, k = sharded_gapless_long(prefs[0].st, prof, bias, params)
+            ok = k >= 0
+            return list(zip(k[ok].tolist(), s[ok].tolist()))
         paths["long"] = _counted(long_query, device)
         del prefs
         if not args.skip_search:

@@ -120,18 +120,26 @@ def align_all(qdb: StructDB, tdb: StructDB,
               prefilter: Dict[int, Sequence[int]], params: SearchParams,
               device: torch.device,
               same_db: bool = False,
-              query_profiles: Optional[Dict[int, object]] = None
+              query_profiles: Optional[Dict[int, object]] = None,
+              db_residues: Optional[int] = None,
+              gate_pairs: Optional[int] = None
               ) -> Dict[int, List[AlnResult]]:
     """Run the alignment stage for every query.
 
     prefilter: query key -> ordered candidate target keys.
     query_profiles: optional prebuilt PSSM profiles (profile and iterative
     search).
+    db_residues, gate_pairs: where `tdb` is one rank's rows of a DB, that
+    DB's residues (the E-values' search space) and the pairs of the whole
+    stage (which choose between host gates and gate fleets); by default
+    `tdb`'s and this call's.
     Returns query key -> sorted AlnResult list."""
     device = torch.device(device)
-    record_count("align_pairs", sum(len(v) for v in prefilter.values()))
+    n_pairs = sum(len(v) for v in prefilter.values())
+    record_count("align_pairs", n_pairs)
     with span("align.setup"):
-        ev = EvalueComputer(tdb.total_residues)
+        ev = EvalueComputer(tdb.total_residues if db_residues is None
+                            else db_residues)
         tkey_to_idx = tdb.key_to_index()
         qkey_to_idx = qdb.key_to_index()
     with span("sw_scoring"):
@@ -162,7 +170,8 @@ def align_all(qdb: StructDB, tdb: StructDB,
     else:
         gate_min = DEVICE_GATES_MIN_PAIRS
     defer_gates = (can_defer and gate_min is not None
-                   and sum(len(v) for v in prefilter.values()) >= gate_min)
+                   and (n_pairs if gate_pairs is None else gate_pairs)
+                   >= gate_min)
     if defer_gates:
         gates_mode = "device"
     else:

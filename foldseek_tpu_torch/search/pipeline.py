@@ -6,8 +6,10 @@ Port of `foldseek_tpu/search/pipeline.py`: with a tmp dir, the prefilter
 and align stages persist their artifacts through `search/stages.py` and a
 re-invoked run resumes from them. Every entry point takes the torch device
 the stages run on. In a `torch.distributed` world of more than one rank
-(`parallel/distributed.py`) every align stage is sharded by query with an
-all_gather merge and the stage cache is off.
+(`parallel/distributed.py`) each rank holds only its rows of the target DB
+for the ungapped prefilter and structurealign, the other align stages are
+sharded by query, the ranks exchange their records exactly, and the stage
+cache is off.
 """
 from __future__ import annotations
 
@@ -82,6 +84,12 @@ def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
 
     def run_pref():
         with Timer("prefilter"):
+            if (world()[1] > 1 and not params.index_server
+                    and not params.exhaustive_search
+                    and params.prefilter_mode == PREF_MODE_UNGAPPED):
+                # each rank scans only its rows of the DB
+                from ..parallel.distributed import sharded_prefilter
+                return sharded_prefilter(qdb, tdb, params, device)
             return run_prefilter(qdb, tdb, params, device)
     pref = cache.run_pref("pref", run_pref) if cache is not None else run_pref()
     return _align_stage(qdb, tdb, pref, params, device, same_db=same_db,
@@ -91,11 +99,13 @@ def search(qdb: StructDB, tdb: StructDB, params: SearchParams,
 def _align_stage(qdb: StructDB, tdb: StructDB, pref: Dict[int, List[int]],
                  params: SearchParams, device: torch.device, same_db: bool,
                  cache=None) -> Dict[int, List[AlnResult]]:
-    # in a world of several ranks every align stage is query-sharded with
-    # an all_gather merge (the $RUNNER prefix the reference puts on each
-    # heavy stage, data/structuresearch.sh:46-53); a world of one rank runs
-    # the plain in-process stage
-    from ..parallel.distributed import sharded_align_all, world
+    # in a world of several ranks structurealign works on each rank's rows
+    # of the DB, and the TM-align and LoLalign stages are query-sharded (the
+    # $RUNNER prefix the reference puts on each heavy stage,
+    # data/structuresearch.sh:46-53); either way the records cross exactly.
+    # A world of one rank runs the plain in-process stage
+    from ..parallel.distributed import (row_sharded_align, sharded_align_all,
+                                        world)
     sharded = world()[1] > 1
 
     def stage(stage_fn):
@@ -115,7 +125,7 @@ def _align_stage(qdb: StructDB, tdb: StructDB, pref: Dict[int, List[int]],
                 return stage(lolalign_all)
         with Timer("structurealign"):
             if sharded:
-                return sharded_align_all(qdb, tdb, pref, params, device,
+                return row_sharded_align(qdb, tdb, pref, params, device,
                                          same_db=same_db)
             return align_all(qdb, tdb, pref, params, device, same_db=same_db)
     if cache is not None:

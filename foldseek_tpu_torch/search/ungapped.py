@@ -134,6 +134,16 @@ class UngappedPrefilter:
             profs, [abs(min(int(p.min()), 0)) for p in profs], params)
 
     def _run_batch(self, profs, byte_biases, params: SearchParams):
+        kept = self.select(profs, byte_biases, params)
+        with span("prefilter.merge"):
+            return [list(zip(kk.tolist(), s.tolist())) for s, kk in kept]
+
+    def select(self, profs, byte_biases, params: SearchParams):
+        """Every query's kept candidates as (int64 scores, int64 keys), in
+        the reference's order: the scan, then the gate (score above
+        MIN_DIAG_SCORE and the coverage pre-gate) and the `max_seqs` best by
+        (score desc, key asc). The sharded prefilter selects each rank's
+        rows with it before the ranks' lists merge."""
         cands = self.scan(profs, byte_biases, params.max_seqs)
         out = []
         with span("prefilter.merge"):
@@ -148,10 +158,9 @@ class UngappedPrefilter:
                     ok &= can_be_covered_mask(params.cov_thr,
                                               params.cov_mode, qlen,
                                               self.tlens[idx])
-                s, idx = s[ok], idx[ok]
-                order = np.lexsort((self.keys[idx], -s))[: params.max_seqs]
-                out.append([(int(self.keys[idx[i]]), int(s[i]))
-                            for i in order])
+                s, kk = s[ok], self.keys[idx[ok]]
+                order = np.lexsort((kk, -s))[: params.max_seqs]
+                out.append((s[order], kk[order]))
         return out
 
     def scan(self, profs, byte_biases, max_seqs: int):

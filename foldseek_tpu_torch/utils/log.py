@@ -39,7 +39,13 @@ STAGE_TIMES: dict = {}
 # window's one number under its label (kernel launches, gate fleets). The
 # DBs' key maps (db/storage.py `StructDB.key_to_index`) record the keys of
 # each map built under "key_maps.built" and add the calls answered from a
-# stored map under "key_maps.reused".
+# stored map under "key_maps.reused". In a world of several ranks
+# (parallel/), a rank records the rows of its shard under "shard.rows" when
+# the shard is made (span "shard.build"), and a call the pairs it aligned
+# under "shard.pairs" and, from the records' exchange (span
+# "align.exchange"; the prefilter's is "prefilter.exchange"), the busiest
+# rank's pairs under "shard.pairs_max" and all ranks' under
+# "shard.pairs_all".
 STAGE_COUNTS: dict = {}
 _stage_lock = threading.Lock()
 

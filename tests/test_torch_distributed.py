@@ -202,8 +202,9 @@ def test_long_query_matches_single_process(dbs, ranks):
 
 
 def test_search_m8_matches_jax(dbs, ranks):
-    """distributed_search (sharded prefilter, query-sharded align, the
-    merge of record lines) prints the m8 of JAX's single-process search."""
+    """distributed_search (`search` in a world of two ranks: the sharded
+    prefilter, the align stage on each rank's rows, the exact merge of the
+    records) prints the m8 of JAX's single-process search."""
     jq, jt = jstorage.load_db(dbs["q6"]), jstorage.load_db(dbs["t200"])
     params = jparams.SearchParams(prefilter_mode=1, add_backtrace=True,
                                   max_seqs=MAX_SEQS)
